@@ -1,0 +1,160 @@
+"""DynamicProber — the public API of the port (exact path).
+
+    state = build(x, cfg, generator=g, capacity=C)       # offline index build
+    ests  = estimate_batch(state, qs, taus, cfg, generator=g)
+    state = update(state, x_new, cfg)                    # §5 data update
+
+Port of ``repro/core/estimator.py``. ``build`` places the state on
+``device`` (default ``"cuda"``; it raises when CUDA is absent and the CPU
+was not asked for); every later call runs where the state lives. Random
+draws take an explicit ``torch.Generator``; the PRP round keys of a batch
+(``rks`` (Q, L, 6)) may instead be passed in, which is how the parity tests
+replay the reference's key tree. Nothing here needs gradients.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import lsh, prober, updates
+from repro_torch.core.config import ProberConfig
+from repro_torch.kernels import ops
+
+
+class ProberState(NamedTuple):
+    index: lsh.LSHIndex
+    x: torch.Tensor                  # (C, d) float32; rows >= n_valid pad
+    pq: Optional[object] = None      # PQ index: later slice
+    epochs: Optional[object] = None  # estimate-cache epochs: later slice
+
+    @property
+    def n_valid(self) -> torch.Tensor:
+        return self.index.n_valid
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[0]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA must exist if asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+def build(x: torch.Tensor, cfg: ProberConfig,
+          generator: torch.Generator | None = None,
+          params: lsh.LSHParams | None = None, capacity: int | None = None,
+          device="cuda") -> ProberState:
+    """Offline build. With ``capacity`` the state is capacity-padded: arrays
+    of ``capacity`` rows with ``x.shape[0]`` live, so an :func:`update` that
+    fits keeps every shape. ``params`` reuses given hash functions;
+    otherwise they are drawn from ``generator``."""
+    if cfg.use_pq:
+        raise NotImplementedError("the PQ path is not ported yet")
+    dev = resolve_device(device)
+    x = torch.as_tensor(x).to(dev, torch.float32).contiguous()
+    if params is not None:
+        params = lsh.LSHParams(*(p.to(dev, torch.float32) for p in params))
+    if capacity is None:
+        index = lsh.build_index(x, cfg, generator, params=params)
+        return ProberState(index=index, x=x)
+    n = x.shape[0]
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < {n} points")
+    x_pad = torch.nn.functional.pad(x, (0, 0, 0, capacity - n))
+    index = lsh.build_index(x_pad, cfg, generator, params=params, n_valid=n)
+    return ProberState(index=index, x=x_pad)
+
+
+def draw_round_keys(generator: torch.Generator, nq: int, nl: int,
+                    device) -> torch.Tensor:
+    """PRP round keys (Q, L, 6): uint32 values held in int64."""
+    rks = torch.randint(0, 2 ** 32, (nq, nl, 6), generator=generator,
+                        dtype=torch.int64, device=generator.device)
+    return rks.to(device)
+
+
+def _round_keys(state: ProberState, nq: int, rks, generator):
+    if rks is not None:
+        return rks
+    if generator is None:
+        raise ValueError("pass rks= or generator=")
+    return draw_round_keys(generator, nq, state.index.n_tables, state.x.device)
+
+
+def estimate_batch(state: ProberState, qs: torch.Tensor, taus: torch.Tensor,
+                   cfg: ProberConfig, rks: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """Estimate Q cardinalities |{p : ||p - q|| <= tau}|: ``qs`` (Q, d),
+    ``taus`` (Q,) → (Q,) float32."""
+    rks = _round_keys(state, qs.shape[0], rks, generator)
+    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks)
+
+
+def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
+                         taus: torch.Tensor, cfg: ProberConfig,
+                         rks: torch.Tensor | None = None,
+                         generator: torch.Generator | None = None):
+    """:func:`estimate_batch` plus probe provenance: ``(ests (Q,), probed_k
+    (Q, L), nvisited (Q,))``; the estimates equal :func:`estimate_batch`'s
+    for the same round keys."""
+    rks = _round_keys(state, qs.shape[0], rks, generator)
+    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
+                                 with_stats=True)
+
+
+def estimate(state: ProberState, q: torch.Tensor, tau, cfg: ProberConfig,
+             rks: torch.Tensor | None = None,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """One query ``q`` (d,) and radius ``tau``; ``rks`` is (L, 6)."""
+    if rks is None:
+        rks = _round_keys(state, 1, None, generator)[0]
+    return prober.estimate(state.index, state.x, q.to(state.x.device), tau,
+                           cfg, rks)
+
+
+def _grow(state: ProberState, new_capacity: int) -> ProberState:
+    """Capacity growth: re-pad every per-point array and rebuild the
+    untrimmed bucket layout at the new capacity."""
+    cap = state.x.shape[0]
+    x = torch.nn.functional.pad(state.x, (0, 0, 0, new_capacity - cap))
+    index = lsh.grow_capacity(state.index, new_capacity)
+    return ProberState(index=index, x=x, pq=state.pq, epochs=state.epochs)
+
+
+def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
+           n_valid: int | None = None) -> ProberState:
+    """§5 data update (Alg. 7). In capacity, every shape is kept; otherwise
+    capacity doubles first. ``n_valid`` is an optional host-side hint of the
+    live count, which saves reading it from the device."""
+    if state.pq is not None or state.epochs is not None:
+        raise NotImplementedError("PQ and epoch ingest are not ported yet")
+    nn = x_new.shape[0]
+    nv = int(state.index.n_valid.item()) if n_valid is None else int(n_valid)
+    cap = state.x.shape[0]
+    if nv + nn > cap:
+        state = _grow(state, updates.next_capacity(cap, nv + nn))
+    x_pad, n_new = updates._pad_batch(x_new.to(state.x.device))
+    x = updates._write_rows(state.x, x_pad, nv, n_new)
+    index = updates._lsh_ingest(state.index, x_pad, n_new, cfg, nv)
+    return ProberState(index=index, x=x)
+
+
+def true_cardinality(x: torch.Tensor, q: torch.Tensor, tau,
+                     n_valid: int | None = None) -> torch.Tensor:
+    """Exact ground truth |{p : ||p - q|| <= tau}| through the ``l2dist``
+    kernel. ``q`` (d,) with a scalar ``tau`` gives a scalar; ``q`` (Q, d)
+    with ``tau`` (Q,) gives (Q,). Rows ``>= n_valid`` are padding."""
+    if n_valid is not None:
+        x = x[:n_valid]
+    qq = q.reshape(-1, q.shape[-1]).to(x.device, torch.float32).contiguous()
+    tau = torch.as_tensor(tau, dtype=torch.float32,
+                          device=x.device).reshape(-1)
+    d2 = ops.l2dist(x.contiguous(), qq)                       # (N, Q)
+    counts = (d2 <= (tau * tau)[None, :]).sum(0, dtype=torch.int32)
+    return counts.reshape(q.shape[:-1])

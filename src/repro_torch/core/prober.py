@@ -1,0 +1,325 @@
+"""Neighboring-based adaptive bucket probing, exact path (paper §4.3/4.4,
+Alg. 1–3; port of ``repro/core/prober.py``).
+
+Lanes are rows: a batch of Q queries over L tables is Q·L lanes, lane
+``i = q·L + t``, and every per-lane quantity is a row of a batch tensor.
+Rings N_k are ``hamming == k`` masks over one table's bucket codes; ring
+candidates are addressed through per-ring size cumsums of the sorted-CSR
+layout; progressive sampling walks a keyed PRP over each ring's power-of-two
+domain one ``chunk``-sized slab at a time, checking the Chernoff bounds of
+§4.5 at the doubling points ``s_{i+1} = 2 s_i``.
+
+Schedule: a host loop runs ``max(cfg.lane_block, 1)`` slab steps on the
+active lanes, syncs once on ``done``, and compacts the still-active lanes
+with an index select. Finished lanes keep their state (the reference's
+``where(done, old, new)``), so per-lane results do not depend on
+``lane_block`` — the reference is bit-identical across its schedules too.
+
+The PRP round keys are inputs: ``rks`` (Q, L, 6), int64 holding uint32
+values, one row per lane (the reference draws them with
+``jax.random.bits`` under its key tree; the parity tests pass those in).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import lsh, sampling
+from repro_torch.core.config import ProberConfig
+from repro_torch.kernels import ops
+
+# qualfn(ids (R, c) int32, lanes (R,) int64) -> (R, c) float32 in {0, 1}
+QualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+_U32 = 0xFFFFFFFF
+
+
+class TableView(NamedTuple):
+    """The index's per-table CSR arrays, stacked over the L tables."""
+    order: torch.Tensor          # (L, C) int32
+    bucket_codes: torch.Tensor   # (L, B, K) int32
+    bucket_starts: torch.Tensor  # (L, B) int32
+    bucket_sizes: torch.Tensor   # (L, B) int32
+    n_buckets: torch.Tensor      # (L,) int32
+
+
+def table_views(index: lsh.LSHIndex) -> TableView:
+    return TableView(index.order, index.bucket_codes, index.bucket_starts,
+                     index.bucket_sizes, index.n_buckets)
+
+
+def gather_ring_from_cum(view: TableView, tid: torch.Tensor,
+                         cum: torch.Tensor, budget: int):
+    """Gather up to ``budget`` point ids per lane from a ring's size cumsum.
+
+    ``tid`` (R,) is each lane's table, ``cum`` (R, B) its ring cumsum.
+    Returns (ids (R, budget) int32, valid (R, budget) bool, total (R,)
+    int32), ``total`` being the full ring population |N_k|.
+    """
+    nr, nb = cum.shape
+    total = cum[:, -1]
+    slots = torch.arange(budget, dtype=torch.int32, device=cum.device)
+    j = torch.searchsorted(cum, slots.expand(nr, budget).contiguous(),
+                           right=True).clamp_max(nb - 1)
+    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
+    pos = view.bucket_starts[tid[:, None], j] + (slots - prev)
+    valid = slots < total[:, None]
+    pos = torch.where(valid, pos, 0).clamp(0, view.order.shape[1] - 1)
+    return view.order[tid[:, None], pos.long()], valid, total
+
+
+def ring_cumsums(view: TableView, ham: torch.Tensor,
+                 n_rings: int) -> torch.Tensor:
+    """Masked size cumsums of rings k = 0..n_rings for every lane.
+
+    ``ham`` (Q, L, B) → (Q·L, n_rings+1, B) int32, row k of a lane being
+    ``cumsum(where(ham == k, sizes, 0))``. Built one ring at a time so the
+    only temporary is one (Q, L, B) slice. Memory: Q·L·(K+1)·B·4 bytes.
+    """
+    nq, nl, nb = ham.shape
+    cums = torch.empty((nq, nl, n_rings + 1, nb), dtype=torch.int32,
+                       device=ham.device)
+    for k in range(n_rings + 1):
+        masked = torch.where(ham == k, view.bucket_sizes[None], 0)
+        cums[:, :, k] = torch.cumsum(masked, dim=-1, dtype=torch.int32)
+    return cums.reshape(nq * nl, n_rings + 1, nb)
+
+
+def _prp_eval(idx: torch.Tensor, rks: torch.Tensor, mask: torch.Tensor,
+              n_bits: torch.Tensor) -> torch.Tensor:
+    """Keyed multiply/xorshift PRP on Z_{2^n}, ``mask = 2^n - 1``.
+
+    ``idx`` (..., c), ``rks`` (..., 6), ``mask`` and ``n_bits`` (...). The
+    reference computes in uint32; torch has no uint32 right shift on the
+    CPU, so this computes in int64, where every intermediate is exact
+    (idx < 2^14, multiplier < 2^32) and masking with ``mask < 2^32`` keeps
+    exactly the low bits uint32 wrap-around would keep.
+    """
+    x = idx.long() & _U32
+    mask = mask.long()[..., None]
+    n_bits = n_bits.long()[..., None]
+    for i in range(3):
+        x = (x * (rks[..., 2 * i, None] | 1)) & mask
+        x = x ^ (x >> (n_bits // 2 + (i % 2) + 1))
+        x = (x + rks[..., 2 * i + 1, None]) & mask
+    return x.to(torch.int32)
+
+
+def _count_central(view: TableView, tid: torch.Tensor, cum0: torch.Tensor,
+                   qualfn: QualFn, lanes: torch.Tensor, cfg: ProberConfig):
+    """Alg. 3: exact count inside B_central for every lane, scaled by
+    ``total/seen`` when the bucket exceeds ``central_budget``."""
+    ids, valid, total = gather_ring_from_cum(view, tid, cum0,
+                                             cfg.central_budget)
+    qualified = (qualfn(ids, lanes) * valid).sum(-1)
+    seen = valid.sum(-1, dtype=torch.int32)
+    scale = torch.where(seen > 0, total / seen.clamp_min(1), 0.0)
+    return qualified * scale, seen
+
+
+class LaneCtx(NamedTuple):
+    """Per-lane loop constants of the progressive sampler, (Q·L, ...)."""
+    cums: torch.Tensor           # (QL, K+1, B) ring size cumsums
+    rks: torch.Tensor            # (QL, 6) PRP round keys (Alg. 2)
+    prings: torch.Tensor         # (QL, K) PRP domain P_k = next_pow2(cap)
+    caps: torch.Tensor           # (QL, K) sample caps min(|N_k|, budget)
+    nbits: torch.Tensor          # (QL, K) log2(P_k)
+    totals_f: torch.Tensor       # (QL, K) |N_k|
+    w_caps: torch.Tensor         # (QL, K) schedule cap ceil(s_max |N_k|)
+    first_targets: torch.Tensor  # (QL, K) first anchor ceil(s1 |N_k|)
+    visit_budget: int
+
+
+def _bit_length(v: torch.Tensor) -> torch.Tensor:
+    """Exact bit length of non-negative int32 values (``32 - clz``)."""
+    pows = torch.ones(31, dtype=torch.int64, device=v.device) << torch.arange(
+        31, device=v.device)
+    return (v.long()[..., None] >= pows).sum(-1).to(torch.int32)
+
+
+def _table_setup(view: TableView, ham: torch.Tensor, rks: torch.Tensor,
+                 tid: torch.Tensor, central_qualfn: QualFn,
+                 cfg: ProberConfig):
+    """Loop-free ring construction for every lane: ring cumsums, the exact
+    central count (Alg. 3), PRP domains and Chernoff schedule anchors.
+    Returns ``(ctx, est0, visited0)``."""
+    n_rings = view.bucket_codes.shape[-1]
+    cums = ring_cumsums(view, ham, n_rings)
+    lanes = torch.arange(cums.shape[0], device=cums.device)
+    est0, visited0 = _count_central(view, tid, cums[:, 0].contiguous(),
+                                    central_qualfn, lanes, cfg)
+    totals = cums[:, 1:, -1]
+    totals_f = totals.float()
+    caps = totals.clamp_max(cfg.ring_budget)
+    nbits = torch.where(caps <= 1, 0, _bit_length((caps - 1).clamp_min(1)))
+    prings = torch.ones_like(nbits) << nbits
+    w_caps = torch.minimum(torch.ceil(cfg.s_max * totals_f), caps.float())
+    first_targets = torch.ceil(cfg.s1 * totals_f).clamp_min(1.0)
+    ctx = LaneCtx(cums=cums, rks=rks, prings=prings, caps=caps, nbits=nbits,
+                  totals_f=totals_f, w_caps=w_caps,
+                  first_targets=first_targets, visit_budget=cfg.max_visit)
+    return ctx, est0, visited0
+
+
+def _init_state(ctx: LaneCtx, est0, visited0, n_rings: int) -> dict:
+    nl = est0.shape[0]
+    dev = est0.device
+    zi = torch.zeros(nl, dtype=torch.int32, device=dev)
+    return {"k": zi + 1, "ci": zi.clone(), "w": zi.clone(),
+            "wq": torch.zeros(nl, dtype=torch.float32, device=dev),
+            "target": ctx.first_targets[:, 0].clone(),
+            "est": est0, "nvisited": visited0,
+            "ptf": torch.zeros(nl, dtype=torch.bool, device=dev),
+            "done": (visited0 >= ctx.visit_budget) | (n_rings < 1)}
+
+
+def _row(t: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
+    return t.gather(1, row[:, None]).squeeze(1)
+
+
+def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
+               tid: torch.Tensor, view: TableView, qualfn: QualFn,
+               cfg: ProberConfig) -> dict:
+    """One progressive-sampling slab (Alg. 2 body) for the active lanes.
+
+    ``s`` and ``small`` hold the active lanes' rows of the loop state and
+    of the per-lane constants; ``lanes`` (A,) are their lane ids, ``tid``
+    their tables. The visit budget counts the in-progress ring's samples
+    every slab, and a budget hit folds the partial ring's estimate.
+    """
+    chunk = cfg.chunk
+    n_rings = view.bucket_codes.shape[-1]
+    nb = view.bucket_sizes.shape[-1]
+    n_points = view.order.shape[-1]
+    slot = torch.arange(chunk, dtype=torch.int32, device=lanes.device)
+    k, ci = s["k"], s["ci"]
+    # lanes that finished earlier in the block (k = K+1) still run the step
+    # and are discarded by the caller; clamp their ring to a valid row, as
+    # the reference's clamped gathers do
+    kc = k.clamp_max(n_rings).long()
+    row = kc - 1
+    p_ring = _row(small.prings, row)
+    idx = ci[:, None] * chunk + slot
+    p_slab = _prp_eval(idx, small.rks, p_ring - 1, _row(small.nbits, row))
+    cum = ctx.cums[lanes, kc]                           # (A, B)
+    ok = (idx < p_ring[:, None]) & (p_slab < _row(small.caps, row)[:, None])
+    j = torch.searchsorted(cum, p_slab, right=True).clamp_max(nb - 1)
+    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
+    pos = view.bucket_starts[tid[:, None], j] + (p_slab - prev)
+    pos = torch.where(ok, pos, 0).clamp(0, n_points - 1)
+    sl = view.order[tid[:, None], pos.long()]
+    wq = s["wq"] + (qualfn(sl, lanes) * ok).sum(-1)
+    w = s["w"] + ok.sum(-1, dtype=torch.int32)
+    exhausted = (ci + 1) * chunk >= p_ring
+    wf = w.float()
+    ring_est = _row(small.totals_f, row) * wq / wf.clamp_min(1.0)
+    p_hat = wq / wf.clamp_min(1.0)
+    w_cap = _row(small.w_caps, row)
+    at_schedule = (wf >= s["target"]) | (wf >= w_cap)
+    if not cfg.schedule_checks:
+        at_schedule = torch.ones_like(at_schedule)
+    cond1 = sampling.stop_sampling(p_hat, wf, cfg.a_const, cfg.eps)
+    cond2 = sampling.stop_probing(p_hat, wf, cfg.a_const, cfg.eps)
+    budget_hit = (s["nvisited"] + wf.int()) >= small.visit_budget
+    ring_done = (at_schedule & (cond1 | cond2)) | (wf >= w_cap) | \
+        exhausted | budget_hit
+    ptf = s["ptf"] | (at_schedule & cond2)
+    target = torch.where(at_schedule, s["target"] * 2.0, s["target"])
+    nk = torch.where(ring_done, k + 1, k)
+    nrow = (nk - 1).clamp_max(n_rings - 1).long()
+    return {
+        "k": nk, "ci": torch.where(ring_done, 0, ci + 1),
+        "w": torch.where(ring_done, 0, w),
+        "wq": torch.where(ring_done, 0.0, wq),
+        "target": torch.where(ring_done, _row(small.first_targets, nrow),
+                              target),
+        "est": torch.where(ring_done, s["est"] + ring_est, s["est"]),
+        "nvisited": torch.where(ring_done, s["nvisited"] + wf.int(),
+                                s["nvisited"]),
+        "ptf": ptf,
+        "done": (nk > n_rings) | ptf | budget_hit,
+    }
+
+
+def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
+               lane_t: torch.Tensor, qualfn: QualFn,
+               cfg: ProberConfig) -> dict:
+    """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
+    steps over the active lanes, one host sync per block, then compaction.
+    Updates ``state`` in place and returns it."""
+    block = max(cfg.lane_block, 1)
+    active = torch.nonzero(~state["done"]).squeeze(1)
+    while active.numel():
+        s = {kk: v[active] for kk, v in state.items()}
+        small = ctx._replace(cums=None, rks=ctx.rks[active],
+                             prings=ctx.prings[active], caps=ctx.caps[active],
+                             nbits=ctx.nbits[active],
+                             totals_f=ctx.totals_f[active],
+                             w_caps=ctx.w_caps[active],
+                             first_targets=ctx.first_targets[active])
+        tid = lane_t[active]
+        for _ in range(block):
+            new = _slab_step(s, ctx, small, active, tid, view, qualfn, cfg)
+            s = {kk: torch.where(s["done"], s[kk], new[kk]) for kk in s}
+        for kk, v in s.items():
+            state[kk][active] = v
+        active = torch.nonzero(~state["done"]).squeeze(1)
+    return state
+
+
+def make_exact_qualfn(x: torch.Tensor, qs_lane: torch.Tensor,
+                      tau_sq_lane: torch.Tensor) -> QualFn:
+    """Exact squared-L2 qualification (Def. 3), 1[d² <= τ²], for lanes whose
+    queries are ``qs_lane`` (QL, d) and squared radii ``tau_sq_lane`` (QL,).
+    Distances go through the fused gather + ``l2dist_rows`` kernel."""
+    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+        d2 = ops.l2dist_rows(x, ids, qs_lane[lanes].contiguous())
+        return (d2 <= tau_sq_lane[lanes, None]).float()
+    return fn
+
+
+def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
+                   taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
+                   with_stats: bool = False):
+    """Batched Alg. 1–3 over Q queries: ``qs`` (Q, d), ``taus`` (Q,), ``rks``
+    (Q, L, 6) round keys. Returns the (Q,) estimates, each the mean of its
+    L per-table estimates; with ``with_stats`` also the deepest folded ring
+    ``probed_k`` (Q, L) and the pooled sample count ``nvisited`` (Q,)."""
+    if cfg.use_pq:
+        raise NotImplementedError("the PQ path is not ported yet")
+    dev = x.device
+    nq = qs.shape[0]
+    nl = index.n_tables
+    n_rings = index.n_funcs
+    if tuple(rks.shape) != (nq, nl, 6):
+        raise ValueError(f"rks must be ({nq}, {nl}, 6), got {tuple(rks.shape)}")
+    qs = qs.to(dev, torch.float32).contiguous()
+    taus = taus.to(dev, torch.float32)
+    view = table_views(index)
+    qcodes = lsh.hash_point(index.params, qs, nl)              # (Q, L, K)
+    ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
+    lane = torch.arange(nq * nl, device=dev)
+    lane_q, lane_t = lane // nl, lane % nl
+    tau_sq = taus * taus
+    qualfn = make_exact_qualfn(x, qs[lane_q].contiguous(), tau_sq[lane_q])
+    ctx, est0, visited0 = _table_setup(
+        view, ham, rks.to(dev, torch.int64).reshape(nq * nl, 6), lane_t,
+        qualfn, cfg)
+    del ham
+    state = _init_state(ctx, est0, visited0, n_rings)
+    state = _run_lanes(state, ctx, view, lane_t, qualfn, cfg)
+    ests = state["est"].reshape(nq, nl).mean(1)
+    if not with_stats:
+        return ests
+    probed_k = (state["k"] - 1).clamp(0, n_rings).reshape(nq, nl)
+    nvis = state["nvisited"].reshape(nq, nl).sum(1, dtype=torch.int32)
+    return ests, probed_k, nvis
+
+
+def estimate(index: lsh.LSHIndex, x: torch.Tensor, q: torch.Tensor,
+             tau, cfg: ProberConfig, rks: torch.Tensor) -> torch.Tensor:
+    """One query ``q`` (d,), radius ``tau``, round keys ``rks`` (L, 6): the
+    Q = 1 row of :func:`estimate_batch`."""
+    taus = torch.as_tensor(tau, dtype=torch.float32).reshape(1)
+    return estimate_batch(index, x, q[None], taus, cfg, rks[None])[0]

@@ -1,0 +1,1 @@
+"""Surrogate corpora and the paper's query protocol, made on the device."""

@@ -1,0 +1,63 @@
+"""Synthetic vector corpora and the paper's query protocol, on the device
+(port of ``repro/data/vectors.py``; draws come from a ``torch.Generator``
+and are not bit-equal to the reference's).
+
+The corpus is a clustered low-intrinsic-dimensional manifold embedded in
+the ambient dimension (real image and text embeddings have intrinsic
+dimension ~8–20), which gives broad distance distributions. The query
+workload follows paper §6.1: query points sampled from the data, a
+geometric grid of target cardinalities in [1, min(20000, 1% N)], and τ at
+the midpoint between the target's distance and the next one.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+
+def make_corpus(generator: torch.Generator, n: int, dim: int, *,
+                n_clusters: int = 32, intrinsic_dim: int = 12,
+                noise: float = 0.05) -> torch.Tensor:
+    """(n, dim) float32 on ``generator``'s device."""
+    g, dev = generator, generator.device
+    basis = torch.randn((intrinsic_dim, dim), generator=g, device=dev) \
+        / math.sqrt(intrinsic_dim)
+    centers = torch.randn((n_clusters, intrinsic_dim), generator=g,
+                          device=dev) * 2.0
+    # heavy-tailed per-cluster scales (the paper's datasets are non-uniform)
+    scales = torch.exp(torch.randn((n_clusters,), generator=g, device=dev)
+                       * 0.8)
+    assign = torch.randint(0, n_clusters, (n,), generator=g, device=dev)
+    z = centers[assign] + torch.randn((n, intrinsic_dim), generator=g,
+                                      device=dev) * scales[assign, None]
+    x = z @ basis + torch.randn((n, dim), generator=g, device=dev) * noise
+    return x.float().contiguous()
+
+
+def paper_query_workload(generator: torch.Generator, x: torch.Tensor,
+                         n_queries: int, n_taus: int = 12,
+                         max_card: int | None = None):
+    """Paper §6.1: returns (queries (Q, d), taus (Q, T), cards (Q, T)) with
+    exact cardinalities from the ``l2dist`` kernel."""
+    n = x.shape[0]
+    if max_card is None:
+        max_card = min(20000, max(n // 100, 2))
+    qidx = torch.randperm(n, generator=generator,
+                          device=generator.device)[:n_queries].to(x.device)
+    queries = x[qidx].contiguous()
+    targets = torch.as_tensor(
+        np.unique(np.geomspace(1, max_card, n_taus).astype(np.int64)),
+        device=x.device)
+    d2 = ops.l2dist(x.contiguous(), queries).T                # (Q, N)
+    d2s = torch.sort(d2, dim=1).values
+    at = torch.sqrt(d2s[:, targets - 1])
+    nxt = torch.sqrt(d2s[:, targets.clamp_max(n - 1)])
+    taus = torch.where(targets < n, 0.5 * (at + nxt), at + 1e-3)
+    del d2s
+    cards = torch.stack([(d2 <= (taus[:, t] ** 2)[:, None]).sum(1)
+                         for t in range(taus.shape[1])], dim=1)
+    return queries, taus, cards

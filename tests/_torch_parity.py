@@ -1,0 +1,54 @@
+"""Shared helpers of the port's parity tests: carry a reference (JAX)
+state into the port as numpy, replay the reference's PRP key tree, and
+check the preconditions under which bit-equality is expected."""
+import numpy as np
+
+MARGIN = 1e-5      # relative / absolute margins of the stated preconditions
+
+
+def jax_state_numpy(state) -> dict:
+    """The reference ``ProberState`` as the port bridge's numpy dict."""
+    ix = state.index
+    d = {"params.a": ix.params.a, "params.b": ix.params.b,
+         "params.w": ix.params.w, "x": state.x}
+    for k in ("raw", "codes", "order", "bucket_codes", "bucket_starts",
+              "bucket_sizes", "n_buckets", "n_valid"):
+        d[k] = getattr(ix, k)
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def reference_round_keys(key, nq: int, nl: int) -> np.ndarray:
+    """(Q, L, 6) int64: the uint32 words ``jax.random.bits(k, (6,))`` that
+    the reference's ``estimate_batch`` draws per (query, table) lane."""
+    import jax
+    import jax.numpy as jnp
+    out = np.zeros((nq, nl, 6), np.int64)
+    for qi, kq in enumerate(jax.random.split(key, nq)):
+        for t, kt in enumerate(jax.random.split(kq, nl)):
+            out[qi, t] = np.asarray(jax.random.bits(kt, (6,), jnp.uint32))
+    return out
+
+
+def near_integer(x, a, b, w) -> np.ndarray:
+    """Mask of hash values ``(x·a + b·w)/w`` within MARGIN of an integer,
+    computed in float64 — where float32 codes may flip between two
+    frameworks' matmul orders."""
+    v = (np.asarray(x, np.float64) @ np.asarray(a, np.float64)
+         + np.asarray(b, np.float64) * np.asarray(w, np.float64)) \
+        / np.asarray(w, np.float64)
+    return np.abs(v - np.round(v)) < MARGIN
+
+
+def assert_no_tau_ties(x, qs, taus, n_valid=None):
+    """Precondition of exact qualification parity: no live point's d²
+    within MARGIN·τ² of any query's τ²."""
+    x = np.asarray(x, np.float64)[:n_valid]
+    for q, t in zip(np.asarray(qs, np.float64), np.asarray(taus, np.float64)):
+        d2 = ((x - q) ** 2).sum(-1)
+        tied = np.abs(d2 - t * t) <= MARGIN * t * t
+        assert not tied.any(), f"{tied.sum()} d² ties at tau={t}"
+
+
+def assert_no_hash_ties(x, a, b, w):
+    near = near_integer(x, a, b, w)
+    assert not near.any(), f"{near.sum()} hash values within {MARGIN} of an integer"
