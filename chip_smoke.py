@@ -22,6 +22,20 @@ Phases, in order; each raises on failure:
    one ``update``.
 6. Small-input agreement: the same index, queries and round keys through
    the CPU path (plain versions) and the GPU path (kernels).
+7. The PQ path at SIFT1M scale, launch counts zeroed just before and read
+   just after: ``build(use_pq=True)`` under the repo's paper-faithful PQ
+   config (``benchmarks/common.py`` ``prober_cfg(use_pq=True)``: float ADC
+   on far rings, exact distances on the central bucket and near rings),
+   ``estimate_batch_stats`` twice (bit-identical), an in-capacity and a
+   growth ``update`` (Alg. 8) with an estimate after each; the serving
+   config (``serve_cfg``: every qualification through the uint8 LUT);
+   and the full-ADC-scan baseline, held against its plain version.
+8. The four ADC kernels against their plain versions at the PQ path's
+   shapes (and the packed 4-bit layout), with CUDA-event times of the
+   kernel, the plain version and ``embedding_bag`` beside the bound.
+9. ``torch.profiler`` over one PQ ``estimate_batch`` of each config.
+10. Small-input agreement of the PQ path (packed 4-bit codes, float and
+    uint8 LUTs) between the CPU and the GPU.
 
 Ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, printing no result, without CUDA or without the
@@ -43,15 +57,28 @@ CFG_KW = dict(n_tables=2, n_funcs=10, ring_budget=2048, central_budget=2048,
               chunk=128, eps=0.01)
 N, DIM, CAPACITY, NQ = 1_000_000, 128, 2 ** 20, 64
 N_INGEST, N_GROW = 16_384, 40_000
+# benchmarks/common.py prober_cfg(use_pq=True, d=128) and serve_cfg(d=128)
+PQ_KW = dict(use_pq=True, pq_m=32, pq_kc=64, pq_iters=8)
+PROBER_PQ_KW = dict(CFG_KW, pq_exact_rings=2, **PQ_KW)
+SERVE_KW = dict(n_tables=1, n_funcs=12, ring_budget=1024, central_budget=512,
+                chunk=512, max_visit=2048, pq_exact_rings=0,
+                pq_exact_central=False, pq_int8_lut=True, **PQ_KW)
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
 MARGIN = 1e-5
 REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "hamming_to_buckets": "src/repro/kernels/hamming.py:32",
             "l2dist": "src/repro/kernels/l2dist.py:41",
-            "l2dist_rows": "src/repro/kernels/l2dist.py:41"}
+            "l2dist_rows": "src/repro/kernels/l2dist.py:41",
+            "adc_rows": "src/repro/kernels/adc.py:67",
+            "adc_batch": "src/repro/kernels/adc.py:110",
+            "adc_rows_q8": "src/repro/kernels/adc.py:153",
+            "adc_batch_q8": "src/repro/kernels/adc.py:200"}
+EXACT_KERNELS = ("lsh_hash", "hamming_to_buckets", "l2dist", "l2dist_rows")
 SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
-           "l2dist": "l2dist.cu", "l2dist_rows": "l2dist.cu"}
+           "l2dist": "l2dist.cu", "l2dist_rows": "l2dist.cu",
+           "adc_rows": "adc.cu", "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
+           "adc_batch_q8": "adc.cu"}
 
 
 def log(*a):
@@ -169,13 +196,8 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
         got = ops.l2dist_rows(x, ids, qs_l)
         want = ref.l2dist_rows(x, ids, qs_l)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        dec = (got <= tsq_l[:, None]) != (want <= tsq_l[:, None])
-        at_margin = (want - tsq_l[:, None]).abs() <= MARGIN * tsq_l[:, None]
-        log(f"l2dist_rows{tuple(ids.shape) + (d,)}: {int(dec.sum())} "
-            f"decisions differ, {int(at_margin.sum())} candidates within "
-            f"{MARGIN} tau^2 of tau^2")
-        if (dec & ~at_margin).any():
-            raise AssertionError("l2dist_rows decision differs off the margin")
+        check_decisions(torch, f"l2dist_rows{tuple(ids.shape) + (d,)}", got,
+                        want, tsq_l[:, None])
         if c == cfg.chunk:
             r = ids.shape[0]
             res["l2dist_rows"] = dict(
@@ -227,13 +249,6 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     dev = corpus.device
     g = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
     def expect_live(state, n):
         if int(state.n_valid) != n:
             raise AssertionError(f"n_valid {int(state.n_valid)} != {n}")
@@ -241,13 +256,13 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    state, t_build = timed(lambda: E.build(corpus[:N], cfg, g,
-                                           capacity=CAPACITY, device=dev))
+    state, t_build = timed(torch, lambda: E.build(
+        corpus[:N], cfg, g, capacity=CAPACITY, device=dev))
     expect_live(state, N)
     log(f"build: {t_build:.3f} s (N {N}, capacity {CAPACITY}, buckets "
         f"{state.index.n_buckets.tolist()})")
     (qs, taus_grid, _), t_wl = timed(
-        lambda: vectors.paper_query_workload(g, corpus[:N], NQ))
+        torch, lambda: vectors.paper_query_workload(g, corpus[:N], NQ))
     taus = taus_grid[torch.arange(NQ, device=dev),
                      torch.arange(NQ, device=dev) % taus_grid.shape[1]]
     log(f"query workload: {t_wl:.3f} s, {taus_grid.shape[1]} targets, "
@@ -255,8 +270,8 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     rks = E.draw_round_keys(g, NQ, cfg.n_tables, dev)
 
     for rnd in ("first", "second"):
-        out, t_est = timed(lambda: E.estimate_batch_stats(state, qs, taus,
-                                                          cfg, rks=rks))
+        out, t_est = timed(torch, lambda: E.estimate_batch_stats(
+            state, qs, taus, cfg, rks=rks))
         log(f"estimate_batch_stats ({rnd} call, Q={NQ}): {t_est * 1e3:.3f} ms")
         if rnd == "second" and not all(torch.equal(a, b)
                                        for a, b in zip(first, out)):
@@ -268,26 +283,27 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     log(f"  probed_k mean {float(probed_k.float().mean()):.3f}, nvisited "
         f"mean {float(nvis.float().mean()):.1f}")
 
-    state, t_up = timed(lambda: E.update(state, corpus[N:N + N_INGEST], cfg))
+    state, t_up = timed(torch, lambda: E.update(
+        state, corpus[N:N + N_INGEST], cfg))
     expect_live(state, N + N_INGEST)
     if state.capacity != CAPACITY:
         raise AssertionError("in-capacity update changed the capacity")
     log(f"update (in capacity, {N_INGEST} points): {t_up:.3f} s = "
         f"{N_INGEST / t_up:.1f} points/s")
-    est, t_est = timed(lambda: E.estimate_batch(state, qs, taus, cfg,
-                                                generator=g))
+    est, t_est = timed(torch, lambda: E.estimate_batch(
+        state, qs, taus, cfg, generator=g))
     truth = E.true_cardinality(state.x, qs, taus, n_valid=N + N_INGEST)
     log(f"estimate_batch after ingest: {t_est * 1e3:.3f} ms")
     summarize(torch, "estimate @ N+ingest", est, truth)
 
     n_all = N + N_INGEST + N_GROW
-    state, t_grow = timed(lambda: E.update(state, corpus[N + N_INGEST:n_all],
-                                           cfg))
+    state, t_grow = timed(torch, lambda: E.update(
+        state, corpus[N + N_INGEST:n_all], cfg))
     expect_live(state, n_all)
     log(f"update (past capacity, {N_GROW} points): {t_grow:.3f} s, capacity "
         f"{CAPACITY} -> {state.capacity}")
-    est, t_est = timed(lambda: E.estimate_batch(state, qs, taus, cfg,
-                                                generator=g))
+    est, t_est = timed(torch, lambda: E.estimate_batch(
+        state, qs, taus, cfg, generator=g))
     truth = E.true_cardinality(state.x, qs, taus, n_valid=n_all)
     log(f"estimate_batch after growth: {t_est * 1e3:.3f} ms")
     summarize(torch, "estimate @ grown", est, truth)
@@ -297,24 +313,33 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
         f" GiB (ring cumsums alone: {NQ * nl * (nk + 1) * nb * 4 / 2 ** 30:.3f}"
         f" GiB at B = {nb})")
     log(f"main-path launches: {json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in EXACT_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return counts, state, qs, taus
 
 
-def phase_profile(torch, state, qs, taus, cfg, seed):
-    """Where the time goes: torch.profiler over one estimate_batch and one
-    in-capacity update of the grown state; device time by operator and the
-    device's busy share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def exact_profile_runs(torch, state, qs, taus, cfg, seed):
+    """One estimate_batch and one in-capacity update of the grown state."""
     from repro_torch.core import estimator as E
     g = torch.Generator(device=qs.device).manual_seed(seed + 3)
     extra = torch.randn((N_INGEST, DIM), generator=g, device=qs.device)
-    for tag, fn in (("estimate_batch", lambda: E.estimate_batch(
-                        state, qs, taus, cfg, generator=g)),
-                    ("update", lambda: E.update(state, extra, cfg))):
+    return [("estimate_batch", lambda: E.estimate_batch(
+                state, qs, taus, cfg, generator=g)),
+            ("update", lambda: E.update(state, extra, cfg))]
+
+
+KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "l2dist_kernel",
+                "l2dist_rows_kernel", "adc_rows_kernel", "adc_batch_kernel")
+
+
+def phase_profile(torch, runs):
+    """Where the time goes: torch.profiler over each ``(tag, fn)`` of
+    ``runs``; device time by operator and the device's busy share of the
+    wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for tag, fn in runs:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -341,12 +366,15 @@ def phase_profile(torch, state, qs, taus, cfg, seed):
             f"{1 - busy / wall_us:.4f}); device time by operator:")
         for t, c, k in by_op[:10]:
             log(f"  {t:12.1f} us {c:6d} calls  {k}")
+        host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]
+        log("  host (self CPU) time by operator: " + ", ".join(
+            f"{e.key} {e.self_cpu_time_total:.0f} us / {e.count}"
+            for e in host))
         # the port's own kernels are launched through ctypes, so they have
-        # no operator row: list their device rows
-        names = ("lsh_hash_kernel", "hamming_kernel", "l2dist_kernel",
-                 "l2dist_rows_kernel")
+        # no operator row: list their device rows (templates by instance)
         for (t, c, k), e in zip(dev_t, ka):
-            label = [n for n in names if f"::{n}(" in k]
+            label = [k[k.index(n):].split("(")[0] for n in KERNEL_NAMES
+                     if f"::{n}(" in k or f"::{n}<" in k]
             if e.device_type == DeviceType.CUDA and label:
                 log(f"  {t:12.1f} us {c:6d} calls  {label[0]}")
 
@@ -356,7 +384,43 @@ def _device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def phase_small_agreement(torch, cfg, seed):
+def check_pq_fit(torch, x, cfg, g):
+    """PQ training on the card against the CPU (the agreement above bridges
+    a CPU-built state): one assignment, one segment sum and the whole fit
+    from the same initial rows agree, codes outside ties
+    (``pq.assign_ties``) exactly."""
+    from repro_torch.core import pq as pqmod
+    rows = pqmod.draw_init_rows(g, x.shape[0], cfg.pq_kc, "cpu")
+    xs = pqmod.split_subspaces(x, cfg.pq_m)
+    cents = xs[rows].transpose(0, 1).contiguous()
+    a_cpu = pqmod.assign(cents, xs)
+    a_gpu = pqmod.assign(cents.cuda(), xs.cuda()).cpu()
+    tie = pqmod.assign_ties(cents, xs, MARGIN)
+    if ((a_cpu != a_gpu) & ~tie).any():
+        raise AssertionError("PQ assign differs between CPU and GPU")
+    seg = pqmod._segments(a_cpu, cfg.pq_kc)
+    flat = xs.reshape(-1, xs.shape[-1])
+    s_cpu = pqmod.segment_sum(flat, seg, cfg.pq_m * cfg.pq_kc)
+    s_gpu = pqmod.segment_sum(flat.cuda(), seg.cuda(),
+                              cfg.pq_m * cfg.pq_kc).cpu()
+    torch.testing.assert_close(s_gpu, s_cpu, rtol=1e-4, atol=1e-3)
+    f_cpu = pqmod.fit(x, cfg, init_rows=rows)
+    f_gpu = pqmod.fit(x.cuda(), cfg, init_rows=rows.cuda())
+    differ = f_gpu.codes.cpu() != f_cpu.codes
+    f_tie = pqmod.assign_ties(f_cpu.centroids, xs, MARGIN)
+    dc = float((f_gpu.centroids.cpu() - f_cpu.centroids).abs().max())
+    log(f"pq fit on the card against the CPU (N={x.shape[0]}): "
+        f"{int(((a_cpu != a_gpu)).sum())} of {a_cpu.numel()} assignments "
+        f"differ ({int(tie.sum())} ties), segment sums allclose; full fit: "
+        f"{int(differ.sum())} of {differ.numel()} codes differ "
+        f"({int(f_tie.sum())} ties), centroids max |diff| {dc:.3g}")
+    torch.testing.assert_close(f_gpu.centroids.cpu(), f_cpu.centroids,
+                               rtol=1e-5, atol=1e-5)
+    if (differ & ~f_tie).any():
+        raise AssertionError("PQ fit on the card departs from the CPU's")
+
+
+def phase_small_agreement(torch, cfg, seed, tag="exact"):
     """The same index, queries and round keys on the CPU (plain versions)
     and on the GPU (kernels): equal ring depths and sample counts, equal
     estimates to rtol 1e-5. Queries whose hash values or distances sit
@@ -376,6 +440,8 @@ def phase_small_agreement(torch, cfg, seed):
     d2 = ((x.double()[None] - qs.double()[:, None]) ** 2).sum(-1)
     t2 = (taus.double() ** 2)[:, None]
     ok_tau = ~((d2 - t2).abs() <= MARGIN * t2).any(1)
+    if cfg.use_pq:
+        ok_tau &= tie_free_pq_queries(cpu, qs, taus, cfg)
     keep = torch.nonzero(ok_hash & ok_tau).squeeze(1)[:16]
     if keep.numel() < 8:
         raise AssertionError("too few tie-free queries for the agreement")
@@ -388,10 +454,264 @@ def phase_small_agreement(torch, cfg, seed):
             torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
         elif not torch.equal(a.cpu(), b):
             raise AssertionError(f"CPU and GPU paths differ in {name}")
-    log(f"small-input agreement: {len(keep)} queries, CPU and GPU paths "
-        f"agree (max |diff| {float((got[0].cpu() - want[0]).abs().max())})")
-    summarize(torch, "estimate @ N=8192 (same config)", got[0].cpu(),
+    if cfg.use_pq and not cfg.pq_int8_lut:
+        check_pq_fit(torch, x, cfg, g)
+    log(f"small-input agreement ({tag}): {len(keep)} queries, CPU and GPU "
+        f"paths agree (max |diff| "
+        f"{float((got[0].cpu() - want[0]).abs().max())})")
+    summarize(torch, f"estimate @ N=8192 ({tag})", got[0].cpu(),
               E.true_cardinality(x, qs, taus))
+
+
+def timed(torch, fn):
+    """(result, seconds) of ``fn`` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_decisions(torch, tag, got, want, tsq):
+    """Qualification decisions ``d <= tau^2`` of a kernel against its plain
+    version: they may differ only where the plain distance lies within
+    MARGIN tau^2 of tau^2 (two summation orders)."""
+    dec = (got <= tsq) != (want <= tsq)
+    at_margin = (want - tsq).abs() <= MARGIN * tsq
+    log(f"{tag}: {int(dec.sum())} decisions differ, {int(at_margin.sum())} "
+        f"candidates within {MARGIN} tau^2 of tau^2")
+    if (dec & ~at_margin).any():
+        raise AssertionError(f"{tag}: a decision differs off the margin")
+
+
+def phase_pq_main_path(torch, corpus, qs, taus, seed):
+    """The PQ path at SIFT1M scale under both PQ configs, plus the scan
+    baseline; returns the launch counts and the two states."""
+    from repro_torch.core import baselines, estimator as E, pq as pqmod
+    from repro_torch.core.config import ProberConfig
+    from repro_torch.kernels import ops, ref
+    dev = corpus.device
+    g = torch.Generator(device=dev).manual_seed(seed + 5)
+    cfg = ProberConfig(**PROBER_PQ_KW)
+    scfg = ProberConfig(**SERVE_KW)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    state, t_build = timed(torch, lambda: E.build(
+        corpus[:N], cfg, g, capacity=CAPACITY, device=dev))
+    log(f"pq build (prober_cfg, M={cfg.pq_m}, Kc={cfg.pq_kc}, "
+        f"{cfg.pq_iters} Lloyd iterations): {t_build:.3f} s, buckets "
+        f"{state.index.n_buckets.tolist()}")
+    r2 = state.pq.resid[:N].double() ** 2
+    t2 = (taus.double() ** 2).sort().values
+    log(f"  quantization distortion: squared residual ||x - q(x)||^2 median "
+        f"{float(r2.median()):.4f}, mean {float(r2.mean()):.4f}; tau^2 of the "
+        f"{NQ} queries min {float(t2[0]):.4f}, median "
+        f"{float(t2[NQ // 2]):.4f}, max {float(t2[-1]):.4f}")
+    truth = E.true_cardinality(state.x, qs, taus, n_valid=N)
+    rks = E.draw_round_keys(g, NQ, cfg.n_tables, dev)
+    for rnd in ("first", "second"):
+        out, t_est = timed(torch, lambda: E.estimate_batch_stats(
+            state, qs, taus, cfg, rks=rks))
+        log(f"pq estimate_batch_stats (prober_cfg, {rnd} call, Q={NQ}): "
+            f"{t_est * 1e3:.3f} ms")
+        if rnd == "second" and not all(torch.equal(a, b)
+                                       for a, b in zip(first, out)):
+            raise AssertionError("PQ estimate_batch_stats is not "
+                                 "deterministic")
+        first = out
+    summarize(torch, "pq estimate @ N (prober_cfg)", first[0], truth)
+    log(f"  probed_k mean {float(first[1].float().mean()):.3f}, nvisited "
+        f"mean {float(first[2].float().mean()):.1f}")
+
+    n_live = N
+    for n_add in (N_INGEST, N_GROW):
+        cap0 = state.capacity
+        state, t_up = timed(torch, lambda: E.update(
+            state, corpus[n_live:n_live + n_add], cfg, n_valid=n_live))
+        n_live += n_add
+        if int(state.n_valid) != n_live or int(state.pq.n_valid) != n_live:
+            raise AssertionError(f"n_valid after the PQ update != {n_live}")
+        log(f"pq update ({n_add} points, capacity {cap0} -> "
+            f"{state.capacity}): {t_up:.3f} s = {n_add / t_up:.1f} points/s")
+        est, t_est = timed(torch, lambda: E.estimate_batch(
+            state, qs, taus, cfg, generator=g))
+        log(f"pq estimate_batch after the update: {t_est * 1e3:.3f} ms")
+        summarize(torch, f"pq estimate @ {n_live}", est,
+                  E.true_cardinality(state.x, qs, taus, n_valid=n_live))
+    if state.capacity != 2 * CAPACITY:
+        raise AssertionError("the growth update did not double capacity")
+
+    sstate, t_build = timed(torch, lambda: E.build(
+        corpus[:N], scfg, g, capacity=CAPACITY, device=dev))
+    log(f"pq build (serve_cfg): {t_build:.3f} s, buckets "
+        f"{sstate.index.n_buckets.tolist()}")
+    srks = E.draw_round_keys(g, NQ, scfg.n_tables, dev)
+    for rnd in ("first", "second"):
+        out, t_est = timed(torch, lambda: E.estimate_batch_stats(
+            sstate, qs, taus, scfg, rks=srks))
+        log(f"pq estimate_batch_stats (serve_cfg, {rnd} call, Q={NQ}): "
+            f"{t_est * 1e3:.3f} ms")
+    summarize(torch, "pq estimate @ N (serve_cfg)", out[0], truth)
+    log(f"  probed_k mean {float(out[1].float().mean()):.3f}, nvisited "
+        f"mean {float(out[2].float().mean()):.1f}")
+
+    for rnd in ("first", "second"):
+        counts, t_scan = timed(torch, lambda: baselines
+                               .adc_scan_estimate_batch(sstate.pq, qs, taus))
+        log(f"adc_scan_estimate_batch over {sstate.pq.capacity} codes "
+            f"({rnd} call): {t_scan * 1e3:.3f} ms")
+    summarize(torch, "full ADC scan @ N", counts, truth)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(ops.LAUNCHES)
+    log(f"pq peak device memory: {peak:.3f} GiB")
+    log(f"pq-path launches: {json.dumps(launches)}")
+    missing = [k for k in ("adc_rows", "adc_rows_q8", "adc_batch",
+                           "l2dist_rows") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the PQ path: {missing}")
+    # the scan's counts against its plain version on the same LUTs
+    luts = pqmod.adc_table(sstate.pq, qs).contiguous()
+    plain = ref.adc_batch(sstate.pq.codes, luts)
+    live = torch.arange(plain.shape[1], device=dev) < N
+    tsq = (taus * taus)[:, None]
+    want = ((plain <= tsq) & live).sum(1).float()
+    near = (((plain - tsq).abs() <= MARGIN * tsq) & live).sum(1)
+    diff = (counts - want).abs()
+    log(f"adc_scan counts against the plain version: max |diff| "
+        f"{float(diff.max())}, {int(near.sum())} candidates within the "
+        "margin")
+    if (diff > near).any():
+        raise AssertionError("adc_scan_estimate_batch differs from its plain "
+                             "version off the margin")
+    return launches, state, sstate
+
+
+def phase_adc_kernels(torch, state, sstate, qs, taus) -> dict:
+    """The four ADC kernels against their plain versions at the PQ path's
+    shapes, then the packed layout; times, bounds and embedding_bag."""
+    from repro_torch.core import pq as pqmod
+    from repro_torch.kernels import ops, ref
+    dev = qs.device
+    res = {}
+    p = sstate.pq
+    m, kc = p.m, p.kc
+    codes = p.codes                                      # (2^20, M) uint8
+    luts = pqmod.adc_table(p, qs).contiguous()           # (Q, M, Kc) f32
+    qluts = pqmod.quantize_lut(luts).q8.contiguous()
+    tsq = (taus * taus)[:, None]
+    nc, nq = codes.shape[0], luts.shape[0]
+
+    def bag(lut_stack):
+        """embedding_bag computing the same (transposed) scan: row n sums
+        rows codes[n, m] + m Kc of the (M Kc, Q) table."""
+        idx = codes.long() + torch.arange(m, device=dev) * kc
+        w = lut_stack.float().permute(1, 2, 0).reshape(m * kc, nq) \
+            .contiguous()
+        return lambda: torch.nn.functional.embedding_bag(idx, w, mode="sum")
+
+    for name, fn, plain_fn, lut_stack, out_b in (
+            ("adc_batch", ops.adc_batch, ref.adc_batch, luts, 4),
+            ("adc_batch_q8", ops.adc_batch_q8, ref.adc_batch_q8, qluts, 4)):
+        got, want = fn(codes, lut_stack), plain_fn(codes, lut_stack)
+        if name == "adc_batch":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            check_decisions(torch, f"{name}{tuple(codes.shape)} x {nq}", got,
+                            want, tsq)
+        elif not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        lib = bag(lut_stack)
+        lib_err = float((lib().T - want.float()).abs().max())
+        log(f"{name}: embedding_bag agrees to {lib_err}")
+        res[name] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(torch, lambda: fn(codes, lut_stack)),
+            plain_ms=cuda_ms(torch, lambda: plain_fn(codes, lut_stack),
+                             iters=3),
+            bound=bound_ms(nc * m + lut_stack.numel()
+                           * lut_stack.element_size() + nq * nc * out_b,
+                           nq * nc * m),
+            library_ms=cuda_ms(torch, lib, iters=5))
+        del got, want
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for name, fn, plain_fn, lut_stack, nl, c, cdes in (
+            ("adc_rows", ops.adc_rows, ref.adc_rows, luts,
+             NQ * PROBER_PQ_KW["n_tables"], PROBER_PQ_KW["chunk"],
+             state.pq.codes),
+            ("adc_rows_q8", ops.adc_rows_q8, ref.adc_rows_q8, qluts,
+             NQ * SERVE_KW["n_tables"], SERVE_KW["chunk"], codes)):
+        ids = torch.randint(0, N, (nl, c), generator=g, device=dev,
+                            dtype=torch.int32)
+        lane_q = (torch.arange(nl, device=dev) * nq // nl).to(torch.int32)
+        got = fn(cdes, ids, lut_stack, lane_q)
+        want = plain_fn(cdes, ids, lut_stack, lane_q)
+        if name == "adc_rows":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            check_decisions(torch, f"{name}({nl} lanes x {c})", got, want,
+                            tsq[lane_q.long()])
+        elif not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        esz = lut_stack.element_size()
+        res[name] = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(torch, lambda: fn(cdes, ids, lut_stack, lane_q)),
+            plain_ms=cuda_ms(torch, lambda: plain_fn(cdes, ids, lut_stack,
+                                                     lane_q)),
+            # ids, the gathered code rows, the lanes' distinct LUTs, lane_q
+            # and the output
+            bound=bound_ms(nl * c * (4 + m + 4) + nl * 4
+                           + int(lane_q.unique().numel()) * m * kc * esz,
+                           nl * c * m),
+            library_ms=None)
+
+    # the packed 4-bit layout at the default M = 8, Kc = 16
+    pc = torch.randint(0, 16, (nc, 8), generator=g, device=dev,
+                       dtype=torch.uint8)
+    pk = pqmod.pack_codes(pc).contiguous()
+    pl = torch.rand((nq, 8, 16), generator=g, device=dev) * 10
+    pql = torch.randint(0, 256, (nq, 8, 16), generator=g, device=dev,
+                        dtype=torch.uint8)
+    ids = torch.randint(0, nc, (128, 128), generator=g, device=dev,
+                        dtype=torch.int32)
+    lane_q = (torch.arange(128, device=dev) * nq // 128).to(torch.int32)
+    torch.testing.assert_close(ops.adc_batch(pk, pl), ref.adc_batch(pc, pl),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ops.adc_rows(pk, ids, pl, lane_q),
+                               ref.adc_rows(pc, ids, pl, lane_q), rtol=1e-5,
+                               atol=1e-5)
+    if not (torch.equal(ops.adc_batch_q8(pk, pql), ref.adc_batch_q8(pc, pql))
+            and torch.equal(ops.adc_rows_q8(pk, ids, pql, lane_q),
+                            ref.adc_rows_q8(pc, ids, pql, lane_q))):
+        raise AssertionError("packed 4-bit ADC differs from byte codes")
+    log(f"packed 4-bit layout (M=8, Kc=16, {tuple(pk.shape)}): all four "
+        f"kernels agree with the plain byte-code versions; adc_batch "
+        f"{cuda_ms(torch, lambda: ops.adc_batch(pk, pl)):.4f} ms")
+    # centroid updates: the sorted segment reduction is deterministic
+    seg = torch.randint(0, m * kc, (nc * m,), generator=g, device=dev)
+    data = torch.randn((nc * m, 4), generator=g, device=dev)
+    if not torch.equal(pqmod.segment_sum(data, seg, m * kc),
+                       pqmod.segment_sum(data, seg, m * kc)):
+        raise AssertionError("segment_sum is not deterministic on the card")
+    log(f"segment_sum over ({nc * m}, 4) into {m * kc} segments: "
+        "bit-identical across two calls")
+    for name, r in res.items():
+        log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
+            f"{r['library_ms']}, max_abs_err {r['max_abs_err']}")
+    return res
+
+
+def tie_free_pq_queries(state, qs, taus, cfg):
+    """Queries for which the CPU and the GPU may not decide differently:
+    no ADC distance at tau^2, and on the uint8 datapath no LUT entry or
+    threshold at a rounding tie (``pq.adc_ties``, ``pq.q8_ties``)."""
+    from repro_torch.core import pq as pqmod
+    p = state.pq
+    luts = pqmod.adc_table(p, qs)
+    ok = ~pqmod.adc_ties(luts, p.codes[:int(p.n_valid)], taus, MARGIN)
+    if cfg.pq_int8_lut:
+        ok &= ~pqmod.q8_ties(luts, taus, p.m)
+    return ok
 
 
 def main(argv=None) -> int:
@@ -423,10 +743,33 @@ def main(argv=None) -> int:
     del index, x_pad
     torch.cuda.empty_cache()
     counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)
-    phase_profile(torch, state, qs, taus, cfg, args.seed)
+    phase_profile(torch, exact_profile_runs(torch, state, qs, taus, cfg,
+                                            args.seed))
     del state
+    torch.cuda.empty_cache()
     phase_small_agreement(torch, cfg, args.seed)
+    pq_counts, pstate, sstate = phase_pq_main_path(torch, corpus, qs, taus,
+                                                   args.seed)
+    res.update(phase_adc_kernels(torch, pstate, sstate, qs, taus))
+    from repro_torch.core import estimator as E
+    g_pr = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    pcfg, scfg = ProberConfig(**PROBER_PQ_KW), ProberConfig(**SERVE_KW)
+    phase_profile(torch, [
+        ("pq estimate_batch (prober_cfg)", lambda: E.estimate_batch(
+            pstate, qs, taus, pcfg, generator=g_pr)),
+        ("pq estimate_batch (serve_cfg)", lambda: E.estimate_batch(
+            sstate, qs, taus, scfg, generator=g_pr))])
+    del pstate, sstate
+    torch.cuda.empty_cache()
+    for tag, kw in (("pq float, packed", {}),
+                    ("pq uint8, packed", dict(pq_int8_lut=True))):
+        phase_small_agreement(torch, ProberConfig(
+            **CFG_KW, use_pq=True, pq_pack4=True, **kw), args.seed, tag)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    # launches: the exact kernels' from the exact main path, the ADC
+    # kernels' from the PQ path (adc_batch_q8 has no path in the reference)
+    counts.update({k: pq_counts[k] for k in ("adc_rows", "adc_rows_q8",
+                                             "adc_batch", "adc_batch_q8")})
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k], launches=counts[k],

@@ -14,12 +14,16 @@ import math
 class ProberConfig:
     """Static prober settings.
 
-    Fields of later slices (PQ/ADC, neighbor table, serving ingest) are kept
-    so field sets compare equal with the reference; this slice runs the
-    exact path only. ``lane_tile`` and ``use_kernels`` are ignored by the
-    port: all active lanes of a batch run as one batch on the GPU, and on
+    The port honours the LSH, probing, sampling and PQ/ADC fields
+    (``use_pq`` and every ``pq_*`` field) as the reference does. Fields of
+    later slices (neighbor table, serving ingest) are kept so field sets
+    compare equal with the reference. ``lane_tile`` and ``use_kernels`` are
+    ignored: all active lanes of a batch run as one batch on the GPU, and on
     CUDA tensors the kernels always run (CPU tensors take the plain
-    versions in ``kernels/ref.py``).
+    versions in ``kernels/ref.py``). ``lane_block`` is the number of slab
+    steps between two compactions of the active lanes; ``lane_block=0``
+    compacts after every step, where the reference runs its monolithic
+    loop. Results are bit-identical for every value, in both packages.
     """
     # --- LSH index (paper §2.2, §4.2) ---
     n_tables: int = 2          # L hash tables
@@ -36,7 +40,7 @@ class ProberConfig:
     delta: float = 1e-3        # failure probability (a = ln(1/delta))
     chunk: int = 256           # candidates evaluated per slab step
     schedule_checks: bool = True   # bound checks only at s_{i+1}=2 s_i points
-    # --- PQ / ADC (paper §4.6, Alg. 4/5) — later slice ---
+    # --- PQ / ADC (paper §4.6, Alg. 4/5/8) ---
     use_pq: bool = False
     pq_m: int = 8
     pq_kc: int = 16
@@ -47,9 +51,8 @@ class ProberConfig:
     pq_exact_rings: int = 2
     pq_exact_central: bool = True
     # --- probe scheduling ---
-    lane_block: int = 4        # slab steps between lane compactions; 0 means
-                               # compact after every step. Results are
-                               # bit-identical for every value.
+    lane_block: int = 4        # slab steps between lane compactions; 0
+                               # compacts after every step (see above)
     lane_tile: int = 16        # ignored by the port (see class docstring)
     # --- neighbor lookup (paper §4.7, Alg. 6) — later slice ---
     table_max_dist: int = 6

@@ -1,10 +1,14 @@
-"""DynamicProber — the public API of the port (exact path).
+"""DynamicProber — the public API of the port.
 
     state = build(x, cfg, generator=g, capacity=C)       # offline index build
     ests  = estimate_batch(state, qs, taus, cfg, generator=g)
     state = update(state, x_new, cfg)                    # §5 data update
 
-Port of ``repro/core/estimator.py``. ``build`` places the state on
+Port of ``repro/core/estimator.py``. ``cfg.use_pq`` switches the candidate
+distance from exact L2 to PQ-ADC ("Dynamic Prober-PQ"): ``build`` then
+fits a :class:`~repro_torch.core.pq.PQIndex`, each estimate builds its
+batch's LUTs (float32, or uint8 with ``pq_int8_lut``), and ``update``
+carries the PQ index through Alg. 8. ``build`` places the state on
 ``device`` (default ``"cuda"``; it raises when CUDA is absent and the CPU
 was not asked for); every later call runs where the state lives. Random
 draws take an explicit ``torch.Generator``; the PRP round keys of a batch
@@ -17,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core import lsh, prober, updates
+from repro_torch.core import lsh, pq as pqmod, prober, updates
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
 
@@ -25,7 +29,7 @@ from repro_torch.kernels import ops
 class ProberState(NamedTuple):
     index: lsh.LSHIndex
     x: torch.Tensor                  # (C, d) float32; rows >= n_valid pad
-    pq: Optional[object] = None      # PQ index: later slice
+    pq: Optional[pqmod.PQIndex] = None   # None unless cfg.use_pq
     epochs: Optional[object] = None  # estimate-cache epochs: later slice
 
     @property
@@ -53,22 +57,28 @@ def build(x: torch.Tensor, cfg: ProberConfig,
     """Offline build. With ``capacity`` the state is capacity-padded: arrays
     of ``capacity`` rows with ``x.shape[0]`` live, so an :func:`update` that
     fits keeps every shape. ``params`` reuses given hash functions;
-    otherwise they are drawn from ``generator``."""
-    if cfg.use_pq:
-        raise NotImplementedError("the PQ path is not ported yet")
+    otherwise they are drawn from ``generator``, before the k-means initial
+    rows."""
     dev = resolve_device(device)
     x = torch.as_tensor(x).to(dev, torch.float32).contiguous()
     if params is not None:
         params = lsh.LSHParams(*(p.to(dev, torch.float32) for p in params))
+    n = x.shape[0]
     if capacity is None:
         index = lsh.build_index(x, cfg, generator, params=params)
-        return ProberState(index=index, x=x)
-    n = x.shape[0]
-    if capacity < n:
-        raise ValueError(f"capacity {capacity} < {n} points")
-    x_pad = torch.nn.functional.pad(x, (0, 0, 0, capacity - n))
-    index = lsh.build_index(x_pad, cfg, generator, params=params, n_valid=n)
-    return ProberState(index=index, x=x_pad)
+        x_all = x
+    else:
+        if capacity < n:
+            raise ValueError(f"capacity {capacity} < {n} points")
+        x_all = torch.nn.functional.pad(x, (0, 0, 0, capacity - n))
+        index = lsh.build_index(x_all, cfg, generator, params=params,
+                                n_valid=n)
+    pq = None
+    if cfg.use_pq:
+        pq = pqmod.fit(x, cfg, generator)
+        if capacity is not None:
+            pq = pqmod.grow(pq, capacity)
+    return ProberState(index=index, x=x_all, pq=pq)
 
 
 def draw_round_keys(generator: torch.Generator, nq: int, nl: int,
@@ -93,7 +103,22 @@ def estimate_batch(state: ProberState, qs: torch.Tensor, taus: torch.Tensor,
     """Estimate Q cardinalities |{p : ||p - q|| <= tau}|: ``qs`` (Q, d),
     ``taus`` (Q,) → (Q,) float32."""
     rks = _round_keys(state, qs.shape[0], rks, generator)
-    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks)
+    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
+                                 **_pq_args(state, qs, cfg))
+
+
+def _pq_args(state: ProberState, qs: torch.Tensor,
+             cfg: ProberConfig) -> dict:
+    """The prober's PQ arguments: codes, the queries' LUT stack in the
+    config's datapath, residuals and packed codes; empty off the PQ
+    path."""
+    pq = state.pq
+    if not cfg.use_pq or pq is None:
+        return {}
+    lut = pqmod.build_query_lut(pq, qs.to(state.x.device, torch.float32),
+                                cfg)
+    return {"pq_codes": pq.codes, "pq_luts": lut, "pq_resid": pq.resid,
+            "pq_packed": pq.packed}
 
 
 def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
@@ -105,7 +130,7 @@ def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
     for the same round keys."""
     rks = _round_keys(state, qs.shape[0], rks, generator)
     return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
-                                 with_stats=True)
+                                 with_stats=True, **_pq_args(state, qs, cfg))
 
 
 def estimate(state: ProberState, q: torch.Tensor, tau, cfg: ProberConfig,
@@ -114,8 +139,9 @@ def estimate(state: ProberState, q: torch.Tensor, tau, cfg: ProberConfig,
     """One query ``q`` (d,) and radius ``tau``; ``rks`` is (L, 6)."""
     if rks is None:
         rks = _round_keys(state, 1, None, generator)[0]
-    return prober.estimate(state.index, state.x, q.to(state.x.device), tau,
-                           cfg, rks)
+    q = q.to(state.x.device)
+    return prober.estimate(state.index, state.x, q, tau, cfg, rks,
+                           **_pq_args(state, q[None], cfg))
 
 
 def _grow(state: ProberState, new_capacity: int) -> ProberState:
@@ -124,16 +150,18 @@ def _grow(state: ProberState, new_capacity: int) -> ProberState:
     cap = state.x.shape[0]
     x = torch.nn.functional.pad(state.x, (0, 0, 0, new_capacity - cap))
     index = lsh.grow_capacity(state.index, new_capacity)
-    return ProberState(index=index, x=x, pq=state.pq, epochs=state.epochs)
+    pq = None if state.pq is None else pqmod.grow(state.pq, new_capacity)
+    return ProberState(index=index, x=x, pq=pq, epochs=state.epochs)
 
 
 def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
            n_valid: int | None = None) -> ProberState:
-    """§5 data update (Alg. 7). In capacity, every shape is kept; otherwise
-    capacity doubles first. ``n_valid`` is an optional host-side hint of the
-    live count, which saves reading it from the device."""
-    if state.pq is not None or state.epochs is not None:
-        raise NotImplementedError("PQ and epoch ingest are not ported yet")
+    """§5 data update: Alg. 7 for the LSH index and, on the PQ path, Alg. 8
+    for the PQ index. In capacity, every shape is kept; otherwise capacity
+    doubles first. ``n_valid`` is an optional host-side hint of the live
+    count, which saves reading it from the device."""
+    if state.epochs is not None:
+        raise NotImplementedError("epoch ingest is not ported yet")
     nn = x_new.shape[0]
     nv = int(state.index.n_valid.item()) if n_valid is None else int(n_valid)
     cap = state.x.shape[0]
@@ -142,7 +170,9 @@ def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
     x_pad, n_new = updates._pad_batch(x_new.to(state.x.device))
     x = updates._write_rows(state.x, x_pad, nv, n_new)
     index = updates._lsh_ingest(state.index, x_pad, n_new, cfg, nv)
-    return ProberState(index=index, x=x)
+    pq = None if state.pq is None else \
+        updates._pq_ingest(state.pq, x, x_pad, n_new, nv)
+    return ProberState(index=index, x=x, pq=pq)
 
 
 def true_cardinality(x: torch.Tensor, q: torch.Tensor, tau,

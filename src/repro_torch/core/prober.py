@@ -18,6 +18,15 @@ with an index select. Finished lanes keep their state (the reference's
 The PRP round keys are inputs: ``rks`` (Q, L, 6), int64 holding uint32
 values, one row per lane (the reference draws them with
 ``jax.random.bits`` under its key tree; the parity tests pass those in).
+
+PQ qualification ("Dynamic Prober-PQ", Alg. 4/5): with PQ codes and the
+batch's LUT stack, candidates qualify on their ADC distance through the
+fused ``adc_rows`` / ``adc_rows_q8`` kernels, which also read packed 4-bit
+codes directly (the reference's ``_gather_codes`` unpacks them first).
+Near rings ``k <= pq_exact_rings`` use exact distances: the reference's
+``lax.cond`` on ``k`` becomes a select under its ``vmap`` over lanes, and
+so here both distances are computed for the active lanes and selected per
+lane, with no host sync.
 """
 from __future__ import annotations
 
@@ -25,12 +34,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from repro_torch.core import lsh, sampling
+from repro_torch.core import lsh, pq as pqmod, sampling
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
 
-# qualfn(ids (R, c) int32, lanes (R,) int64) -> (R, c) float32 in {0, 1}
+# qualfn(ids (R, c) int32, lanes (R,) int64) -> (R, c) float32 weights in
+# [0, 1] (exact and hard ADC: 1[d² <= τ²]; banded ADC: a fraction)
 QualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# ring_fn(k (R,), ids, lanes): the qualification of ring k for each lane
+RingFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 _U32 = 0xFFFFFFFF
 
@@ -179,7 +191,7 @@ def _row(t: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
 
 
 def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
-               tid: torch.Tensor, view: TableView, qualfn: QualFn,
+               tid: torch.Tensor, view: TableView, ring_fn: RingFn,
                cfg: ProberConfig) -> dict:
     """One progressive-sampling slab (Alg. 2 body) for the active lanes.
 
@@ -209,7 +221,7 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
     pos = view.bucket_starts[tid[:, None], j] + (p_slab - prev)
     pos = torch.where(ok, pos, 0).clamp(0, n_points - 1)
     sl = view.order[tid[:, None], pos.long()]
-    wq = s["wq"] + (qualfn(sl, lanes) * ok).sum(-1)
+    wq = s["wq"] + (ring_fn(k, sl, lanes) * ok).sum(-1)
     w = s["w"] + ok.sum(-1, dtype=torch.int32)
     exhausted = (ci + 1) * chunk >= p_ring
     wf = w.float()
@@ -243,7 +255,7 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
 
 
 def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
-               lane_t: torch.Tensor, qualfn: QualFn,
+               lane_t: torch.Tensor, ring_fn: RingFn,
                cfg: ProberConfig) -> dict:
     """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
     steps over the active lanes, one host sync per block, then compaction.
@@ -260,7 +272,8 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                              first_targets=ctx.first_targets[active])
         tid = lane_t[active]
         for _ in range(block):
-            new = _slab_step(s, ctx, small, active, tid, view, qualfn, cfg)
+            new = _slab_step(s, ctx, small, active, tid, view, ring_fn,
+                             cfg)
             s = {kk: torch.where(s["done"], s[kk], new[kk]) for kk in s}
         for kk, v in s.items():
             state[kk][active] = v
@@ -279,15 +292,102 @@ def make_exact_qualfn(x: torch.Tensor, qs_lane: torch.Tensor,
     return fn
 
 
+def make_adc_qualfn(codes: torch.Tensor, luts: torch.Tensor,
+                    lane_q: torch.Tensor, tau_sq_lane: torch.Tensor,
+                    resid: torch.Tensor | None = None, banded: bool = False,
+                    packed: torch.Tensor | None = None) -> QualFn:
+    """PQ-ADC qualification through the LUT stack ``luts`` (Q, M, Kc),
+    lane i using LUT ``lane_q[i]`` (Alg. 5). ``banded=False`` is the
+    paper's hard threshold on the ADC distance; ``banded=True`` weighs each
+    candidate by the fraction of its residual band [max(0, adc − r), adc +
+    r] that lies below τ (r = ||p − q(p)||, the triangle inequality).
+    ``packed`` codes, when given, are read instead of the byte codes."""
+    src = codes if packed is None else packed
+    lane_q32 = lane_q.to(torch.int32)
+
+    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+        adc_sq = ops.adc_rows(src, ids, luts, lane_q32[lanes].contiguous())
+        tau_sq = tau_sq_lane[lanes, None]
+        if not banded or resid is None:
+            return (adc_sq <= tau_sq).float()
+        adc = torch.sqrt(adc_sq.clamp_min(0.0))
+        r = resid[ids.long()]
+        lo = (adc - r).clamp_min(0.0)
+        hi = adc + r
+        tau = torch.sqrt(tau_sq)
+        w = torch.where(hi > lo, (tau - lo) / (hi - lo).clamp_min(1e-12),
+                        (adc <= tau).float())
+        return w.clamp(0.0, 1.0)
+    return fn
+
+
+def make_adc_qualfn_q8(codes: torch.Tensor, qlut: pqmod.QuantLUT,
+                       lane_q: torch.Tensor, tau_sq: torch.Tensor,
+                       packed: torch.Tensor | None = None) -> QualFn:
+    """Quantized ADC qualification (the reference's DESIGN.md §11): int32
+    sums of the uint8 LUT stack ``qlut.q8`` (Q, M, Kc) against each
+    query's ``quantized_threshold``; ``tau_sq`` is per query (Q,)."""
+    src = codes if packed is None else packed
+    lane_q32 = lane_q.to(torch.int32)
+    thresh = pqmod.quantized_threshold(qlut, qlut.q8.shape[1],
+                                       tau_sq)[lane_q]        # (QL,)
+
+    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+        s = ops.adc_rows_q8(src, ids, qlut.q8, lane_q32[lanes].contiguous())
+        return (s <= thresh[lanes, None]).float()
+    return fn
+
+
+def _make_qualfns(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
+                  pq_luts=None, pq_resid=None, pq_packed=None):
+    """Qualification routing: returns (qualfn, central_qualfn,
+    exact_qualfn) — the ring function, the exact function for B_central
+    (None: use ``qualfn``, the ``pq_exact_central=False`` serving trade)
+    and the exact function for near rings k <= ``pq_exact_rings`` (None:
+    ADC everywhere). ``pq_luts`` is a float (Q, M, Kc) stack or a batched
+    :class:`~repro_torch.core.pq.QuantLUT`."""
+    tau_sq_lane = tau_sq[lane_q]
+    exact = make_exact_qualfn(x, qs[lane_q].contiguous(), tau_sq_lane)
+    if pq_codes is None or pq_luts is None:
+        return exact, None, None
+    if isinstance(pq_luts, pqmod.QuantLUT):
+        qualfn = make_adc_qualfn_q8(pq_codes, pq_luts, lane_q, tau_sq,
+                                    packed=pq_packed)
+    else:
+        qualfn = make_adc_qualfn(pq_codes, pq_luts, lane_q, tau_sq_lane,
+                                 resid=pq_resid, banded=cfg.pq_banded,
+                                 packed=pq_packed)
+    return (qualfn, exact if cfg.pq_exact_central else None,
+            exact if cfg.pq_exact_rings > 0 else None)
+
+
+def _make_ring_fn(qualfn: QualFn, exact_qualfn: QualFn | None,
+                  cfg: ProberConfig) -> RingFn:
+    """Per-ring dispatch: lanes in a near ring k <= ``pq_exact_rings`` take
+    the exact qualification, the others ``qualfn``. Both are computed for
+    the active lanes and selected per lane (no host sync)."""
+    if exact_qualfn is None or cfg.pq_exact_rings <= 0:
+        return lambda k, ids, lanes: qualfn(ids, lanes)
+
+    def fn(k, ids, lanes):
+        near = (k <= cfg.pq_exact_rings)[:, None]
+        return torch.where(near, exact_qualfn(ids, lanes), qualfn(ids, lanes))
+    return fn
+
+
 def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
                    taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
-                   with_stats: bool = False):
+                   with_stats: bool = False, pq_codes=None, pq_luts=None,
+                   pq_resid=None, pq_packed=None):
     """Batched Alg. 1–3 over Q queries: ``qs`` (Q, d), ``taus`` (Q,), ``rks``
     (Q, L, 6) round keys. Returns the (Q,) estimates, each the mean of its
     L per-table estimates; with ``with_stats`` also the deepest folded ring
-    ``probed_k`` (Q, L) and the pooled sample count ``nvisited`` (Q,)."""
-    if cfg.use_pq:
-        raise NotImplementedError("the PQ path is not ported yet")
+    ``probed_k`` (Q, L) and the pooled sample count ``nvisited`` (Q,).
+
+    With ``pq_codes`` (C, M) uint8 and ``pq_luts`` (the batch's (Q, M, Kc)
+    float LUT stack, or a batched ``QuantLUT``) candidates qualify by ADC
+    as the config routes them; ``pq_resid`` (C,) serves banded
+    qualification and ``pq_packed`` (C, M/2) the 4-bit codes."""
     dev = x.device
     nq = qs.shape[0]
     nl = index.n_tables
@@ -301,14 +401,16 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
     lane = torch.arange(nq * nl, device=dev)
     lane_q, lane_t = lane // nl, lane % nl
-    tau_sq = taus * taus
-    qualfn = make_exact_qualfn(x, qs[lane_q].contiguous(), tau_sq[lane_q])
+    qualfn, central_qualfn, exact_qualfn = _make_qualfns(
+        x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts, pq_resid,
+        pq_packed)
     ctx, est0, visited0 = _table_setup(
         view, ham, rks.to(dev, torch.int64).reshape(nq * nl, 6), lane_t,
-        qualfn, cfg)
+        central_qualfn or qualfn, cfg)
     del ham
     state = _init_state(ctx, est0, visited0, n_rings)
-    state = _run_lanes(state, ctx, view, lane_t, qualfn, cfg)
+    state = _run_lanes(state, ctx, view, lane_t,
+                       _make_ring_fn(qualfn, exact_qualfn, cfg), cfg)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests
@@ -318,8 +420,9 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
 
 
 def estimate(index: lsh.LSHIndex, x: torch.Tensor, q: torch.Tensor,
-             tau, cfg: ProberConfig, rks: torch.Tensor) -> torch.Tensor:
+             tau, cfg: ProberConfig, rks: torch.Tensor, **pq) -> torch.Tensor:
     """One query ``q`` (d,), radius ``tau``, round keys ``rks`` (L, 6): the
-    Q = 1 row of :func:`estimate_batch`."""
+    Q = 1 row of :func:`estimate_batch`, whose PQ arguments ``pq`` (with
+    the query's LUT stack of one) it passes on."""
     taus = torch.as_tensor(tau, dtype=torch.float32).reshape(1)
-    return estimate_batch(index, x, q[None], taus, cfg, rks[None])[0]
+    return estimate_batch(index, x, q[None], taus, cfg, rks[None], **pq)[0]

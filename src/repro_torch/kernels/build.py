@@ -31,6 +31,10 @@ SIGNATURES = {
     "hamming_to_buckets_i32": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
     "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _P],
     "l2dist_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "adc_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "adc_rows_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "adc_batch_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    "adc_batch_u8": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

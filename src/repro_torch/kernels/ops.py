@@ -14,7 +14,9 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
-                            "l2dist": 0, "l2dist_rows": 0}
+                            "l2dist": 0, "l2dist_rows": 0, "adc_rows": 0,
+                            "adc_rows_q8": 0, "adc_batch": 0,
+                            "adc_batch_q8": 0}
 
 
 def reset_launches() -> None:
@@ -154,3 +156,119 @@ def l2dist_rows(x: torch.Tensor, ids: torch.Tensor,
         _launch("l2dist_rows", "l2dist_rows_f32", x.data_ptr(),
                 ids.data_ptr(), qs.data_ptr(), out.data_ptr(), nr, c, d, vec)
     return out
+
+
+# ---- ADC (Alg. 5) --------------------------------------------------------
+
+# code row bytes the kernels hold in registers; with Kc <= 256 this bounds
+# one LUT by 64 x 256 x 4 bytes = 64 KB, which fits a block's shared memory
+_MAX_CODE_BYTES = 64
+
+
+def _adc_layout(codes: torch.Tensor, luts: torch.Tensor,
+                lut_dtype: torch.dtype) -> tuple[int, int, int, int, int]:
+    """Checks of the ADC kernels' inputs; returns (m, kc, code bytes,
+    packed, alignment of the code rows)."""
+    _check(codes, "codes", torch.uint8, 2)
+    _check(luts, "luts", lut_dtype, 3)
+    _, m, kc = luts.shape
+    cb = codes.shape[1]
+    packed = cb != m
+    if packed and (2 * cb != m or kc > 16):
+        raise ValueError(f"codes of width {cb} fit neither M={m} byte codes "
+                         f"nor M/2 packed 4-bit codes (Kc={kc} <= 16)")
+    if not 0 < kc <= 256 or not 0 < cb <= _MAX_CODE_BYTES:
+        raise ValueError(f"ADC kernels take Kc in 1..256 and code rows of "
+                         f"1..{_MAX_CODE_BYTES} bytes, got Kc={kc}, {cb}")
+    ptr = codes.data_ptr()
+    align = 16 if cb % 16 == 0 and ptr % 16 == 0 else \
+        4 if cb % 4 == 0 and ptr % 4 == 0 else 1
+    return m, kc, cb, int(packed), align
+
+
+def _adc_rows(name: str, fn: str, lut_dtype, out_dtype, codes, ids, luts,
+              lane_q):
+    m, kc, cb, packed, align = _adc_layout(codes, luts, lut_dtype)
+    _check(ids, "ids", torch.int32, 2)
+    _check(lane_q, "lane_q", torch.int32, 1)
+    nr, c = ids.shape
+    if lane_q.shape[0] != nr:
+        raise ValueError(f"lane_q{tuple(lane_q.shape)} for ids"
+                         f"{tuple(ids.shape)}")
+    out = torch.empty((nr, c), dtype=out_dtype, device=codes.device)
+    if nr and c:
+        _launch(name, fn, codes.data_ptr(), ids.data_ptr(), luts.data_ptr(),
+                lane_q.data_ptr(), out.data_ptr(), nr, c, cb, m, kc, packed,
+                align)
+    return out
+
+
+def adc_rows(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor,
+             lane_q: torch.Tensor) -> torch.Tensor:
+    """codes (C, M) uint8, or (C, M/2) packed 4-bit codes; ids (R, c)
+    int32; luts (Q, M, Kc) float32; lane_q (R,) int32 → (R, c) float32:
+    row r, candidate i is Σ_m luts[lane_q[r], m, codes[ids[r, i], m]]. The
+    gather is fused. Every id must lie in [0, C), every lane_q in [0, Q)
+    and every code below Kc."""
+    if _on_cpu(codes, ids, luts, lane_q):
+        return ref.adc_rows(codes, ids, luts, lane_q)
+    return _adc_rows("adc_rows", "adc_rows_f32", torch.float32,
+                     torch.float32, codes, ids, luts, lane_q)
+
+
+def adc_rows_q8(codes: torch.Tensor, ids: torch.Tensor, qluts: torch.Tensor,
+                lane_q: torch.Tensor) -> torch.Tensor:
+    """:func:`adc_rows` of uint8 LUTs (Q, M, Kc) → (R, c) int32 sums."""
+    if _on_cpu(codes, ids, qluts, lane_q):
+        return ref.adc_rows_q8(codes, ids, qluts, lane_q)
+    return _adc_rows("adc_rows_q8", "adc_rows_u8", torch.uint8, torch.int32,
+                     codes, ids, qluts, lane_q)
+
+
+def _adc_batch(name: str, fn: str, lut_dtype, out_dtype, codes, luts):
+    m, kc, cb, packed, align = _adc_layout(codes, luts, lut_dtype)
+    n, nq = codes.shape[0], luts.shape[0]
+    out = torch.empty((nq, n), dtype=out_dtype, device=codes.device)
+    if n and nq:
+        _launch(name, fn, codes.data_ptr(), luts.data_ptr(), out.data_ptr(),
+                n, nq, cb, m, kc, packed, align)
+    return out
+
+
+def adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
+    """codes (N, M) uint8, or (N, M/2) packed 4-bit codes; luts (Q, M, Kc)
+    float32 → (Q, N) float32 ADC distances, one pass over the codes for
+    all Q queries. Every code must lie below Kc."""
+    if _on_cpu(codes, luts):
+        return ref.adc_batch(codes, luts)
+    return _adc_batch("adc_batch", "adc_batch_f32", torch.float32,
+                      torch.float32, codes, luts)
+
+
+def adc_batch_q8(codes: torch.Tensor, qluts: torch.Tensor) -> torch.Tensor:
+    """:func:`adc_batch` of uint8 LUTs (Q, M, Kc) → (Q, N) int32 sums."""
+    if _on_cpu(codes, qluts):
+        return ref.adc_batch_q8(codes, qluts)
+    return _adc_batch("adc_batch_q8", "adc_batch_u8", torch.uint8,
+                      torch.int32, codes, qluts)
+
+
+def _byte_codes(codes: torch.Tensor) -> torch.Tensor:
+    """The reference forms take codes of any integer type below 256."""
+    if codes.dtype != torch.uint8:
+        if codes.numel() and (int(codes.min()) < 0 or int(codes.max()) > 255):
+            raise ValueError("codes must lie in [0, 256)")
+        codes = codes.to(torch.uint8)
+    return codes.contiguous()
+
+
+def adc(codes: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """The reference kernel's own form: codes (N, M) integers below 256,
+    lut (M, Kc) float32 → (N,). The Q = 1 call of :func:`adc_batch`."""
+    return adc_batch(_byte_codes(codes), lut[None].contiguous())[0]
+
+
+def adc_q8(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
+    """codes (N, M), qlut (M, Kc) uint8 → (N,) int32: the Q = 1 call of
+    :func:`adc_batch_q8`."""
+    return adc_batch_q8(_byte_codes(codes), qlut[None].contiguous())[0]

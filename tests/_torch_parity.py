@@ -2,6 +2,9 @@
 state into the port as numpy, replay the reference's PRP key tree, and
 check the preconditions under which bit-equality is expected."""
 import numpy as np
+import torch
+
+from repro_torch.core import pq
 
 MARGIN = 1e-5      # relative / absolute margins of the stated preconditions
 
@@ -14,7 +17,51 @@ def jax_state_numpy(state) -> dict:
     for k in ("raw", "codes", "order", "bucket_codes", "bucket_starts",
               "bucket_sizes", "n_buckets", "n_valid"):
         d[k] = getattr(ix, k)
+    if state.pq is not None:
+        for k in ("centroids", "codes", "counts", "resid", "n_valid"):
+            d[f"pq.{k}"] = getattr(state.pq, k)
+        if state.pq.packed is not None:
+            d["pq.packed"] = state.pq.packed
     return {k: np.asarray(v) for k, v in d.items()}
+
+
+def _t64(a):
+    return torch.from_numpy(np.array(a, np.float64))
+
+
+def assert_no_assign_ties(centroids, xs):
+    """Precondition of bit-equal PQ codes: no point's two nearest centroids
+    (in any subspace) lie within MARGIN (relative) of each other, so two
+    frameworks' distance sums pick the same argmin. ``centroids`` (M, Kc,
+    ds), ``xs`` (N, M, ds)."""
+    tied = pq.assign_ties(_t64(centroids), _t64(xs), MARGIN)
+    assert not tied.any(), f"{int(tied.sum())} assignments within the margin"
+
+
+def adc_f64(luts, codes):
+    """ADC distances in float64: luts (Q, M, Kc), codes (N, M) → (Q, N)."""
+    luts = np.asarray(luts, np.float64)
+    codes = np.asarray(codes).astype(np.int64)
+    m = luts.shape[1]
+    return luts[:, np.arange(m)[None, :], codes].sum(-1)
+
+
+def assert_no_adc_ties(luts, codes, taus, n_valid):
+    """Precondition of ADC qualification parity: no live point's ADC
+    distance within MARGIN·τ² of τ² for its query's LUT."""
+    codes = torch.from_numpy(np.array(codes)[:n_valid].astype(np.int64))
+    tied = pq.adc_ties(_t64(luts), codes, _t64(taus), MARGIN)
+    assert not tied.any(), f"{int(tied.sum())} queries with ADC distances " \
+        "at tau^2"
+
+
+def assert_no_q8_ties(luts, taus, m):
+    """Precondition of bit-equal uint8 LUTs and thresholds (float32 LUTs
+    built by two frameworks may differ in the last bit): no entry at a
+    rounding tie, no threshold at an integer (``pq.q8_ties``)."""
+    tied = pq.q8_ties(_t64(luts), _t64(taus), m)
+    assert not tied.any(), f"{int(tied.sum())} queries with a uint8 LUT " \
+        "entry or threshold at a rounding tie"
 
 
 def reference_round_keys(key, nq: int, nl: int) -> np.ndarray:
