@@ -18,23 +18,33 @@ Phases, in order; each raises on failure:
    ``update`` past capacity (growth to 2^21), an estimate after each, all
    held against ``true_cardinality``. Kernel launch counts are zeroed just
    before and read just after.
-5. Where the time goes: ``torch.profiler`` over one ``estimate_batch`` and
+5. The fused slab kernel ``slab_qualify`` against its plain version on the
+   grown state (128 lanes x 128 slots, B = 2^21): sample counts and sums
+   equal, and equal to the slab path's composition before the fusion (the
+   torch candidate walk and the ``l2dist_rows`` kernel); CUDA-event and
+   profiler times, and the launches of one slab step either way.
+6. Where the time goes: ``torch.profiler`` over one ``estimate_batch`` and
    one ``update``.
-6. Small-input agreement: the same index, queries and round keys through
+7. Small-input agreement: the same index, queries and round keys through
    the CPU path (plain versions) and the GPU path (kernels).
-7. The PQ path at SIFT1M scale, launch counts zeroed just before and read
-   just after: ``build(use_pq=True)`` under the repo's paper-faithful PQ
-   config (``benchmarks/common.py`` ``prober_cfg(use_pq=True)``: float ADC
-   on far rings, exact distances on the central bucket and near rings),
-   ``estimate_batch_stats`` twice (bit-identical), an in-capacity and a
-   growth ``update`` (Alg. 8) with an estimate after each; the serving
-   config (``serve_cfg``: every qualification through the uint8 LUT);
-   and the full-ADC-scan baseline, held against its plain version.
-8. The four ADC kernels against their plain versions at the PQ path's
+8. The PQ path at SIFT1M scale, launch counts zeroed just before and read
+   just after each config: ``build(use_pq=True)`` under the repo's
+   paper-faithful PQ config (``benchmarks/common.py``
+   ``prober_cfg(use_pq=True)``: float ADC on far rings, exact distances on
+   the central bucket and near rings), ``estimate_batch_stats`` twice
+   (bit-identical), an in-capacity and a growth ``update`` (Alg. 8) with
+   an estimate after each; the serving config (``serve_cfg``: every
+   qualification through the uint8 LUT), then ``serve_cfg`` with float
+   LUTs (the config where the uint8 datapath is absent); and the
+   full-ADC-scan baseline, held against its plain version.
+9. The four ADC kernels against their plain versions at the PQ path's
    shapes (and the packed 4-bit layout), with CUDA-event times of the
-   kernel, the plain version and ``embedding_bag`` beside the bound.
-9. ``torch.profiler`` over one PQ ``estimate_batch`` of each config.
-10. Small-input agreement of the PQ path (packed 4-bit codes, float and
+   kernel, the plain version and ``embedding_bag`` beside the bound; then
+   ``slab_qualify`` against its plain version on the PQ states: mixed
+   routing and banded weights at 2^21, ``serve_cfg``'s uint8 slab (64 x
+   512) with byte and packed codes.
+10. ``torch.profiler`` over one PQ ``estimate_batch`` of each config.
+11. Small-input agreement of the PQ path (packed 4-bit codes, float and
     uint8 LUTs) between the CPU and the GPU.
 
 Ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -73,12 +83,15 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "adc_rows": "src/repro/kernels/adc.py:67",
             "adc_batch": "src/repro/kernels/adc.py:110",
             "adc_rows_q8": "src/repro/kernels/adc.py:153",
-            "adc_batch_q8": "src/repro/kernels/adc.py:200"}
-EXACT_KERNELS = ("lsh_hash", "hamming_to_buckets", "l2dist", "l2dist_rows")
+            "adc_batch_q8": "src/repro/kernels/adc.py:200",
+            "slab_qualify": "src/repro/kernels/l2dist.py:41, "
+                            "src/repro/kernels/adc.py:67"}
+EXACT_KERNELS = ("lsh_hash", "hamming_to_buckets", "l2dist", "l2dist_rows",
+                 "slab_qualify")
 SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
            "l2dist": "l2dist.cu", "l2dist_rows": "l2dist.cu",
            "adc_rows": "adc.cu", "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
-           "adc_batch_q8": "adc.cu"}
+           "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu"}
 
 
 def log(*a):
@@ -185,8 +198,8 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
     del got, want
     log(f"hamming_to_buckets{tuple(qcodes.shape[:2]) + (nbk,)}: exact")
 
-    # l2dist_rows: one slab (128 lanes x 128 candidates) and one central
-    # pass (128 lanes x 2048), lane i holding query i // L
+    # l2dist_rows: one slab's shape (128 lanes x 128) and the central pass
+    # (128 lanes x 2048), lane i holding query i // L
     g = torch.Generator(device=dev).manual_seed(1)
     lane_q = torch.arange(NQ * cfg.n_tables, device=dev) // cfg.n_tables
     qs_l, tsq_l = qs[lane_q].contiguous(), (taus * taus)[lane_q]
@@ -198,7 +211,7 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         check_decisions(torch, f"l2dist_rows{tuple(ids.shape) + (d,)}", got,
                         want, tsq_l[:, None])
-        if c == cfg.chunk:
+        if c == cfg.central_budget:
             r = ids.shape[0]
             res["l2dist_rows"] = dict(
                 max_abs_err=float((got - want).abs().max()),
@@ -330,7 +343,191 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
 
 
 KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "l2dist_kernel",
-                "l2dist_rows_kernel", "adc_rows_kernel", "adc_batch_kernel")
+                "l2dist_rows_kernel", "adc_rows_kernel", "adc_batch_kernel",
+                "slab_qualify_kernel")
+LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
+
+
+def launch_calls(ka) -> int:
+    return sum(e.count for e in ka if e.key.startswith(LAUNCH_API))
+
+
+def slab_setup(torch, state, qs, taus, cfg, seed):
+    """The slab kernel's inputs at a main-path slab of ``state``: every
+    lane of the queries, shuffled, each in a random ring 1..K+1 (K+1: a
+    finished lane) at a random slab 0..(its PRP domain's slab count), so
+    that draws past the sample cap and past the domain occur. Returns the
+    slab arguments, the qualification, and what ``_slab_step`` reads."""
+    from repro_torch.core import estimator as E, lsh, prober
+    dev = qs.device
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    nl, nk = cfg.n_tables, cfg.n_funcs
+    view = prober.table_views(state.index)
+    qcodes = lsh.hash_point(state.index.params, qs, nl)
+    ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
+    nql = qs.shape[0] * nl
+    lane = torch.arange(nql, device=dev)
+    qual = prober._make_qual(state.x, qs, taus * taus, lane // nl, cfg,
+                             **E._pq_args(state, qs, cfg))
+    rks = E.draw_round_keys(g, qs.shape[0], nl, dev).reshape(nql, 6)
+    ctx, est0, vis0 = prober._table_setup(
+        view, ham, rks, lane % nl, qual,
+        qual.codes is None or cfg.pq_exact_central, cfg)
+    del ham
+    lanes = torch.randperm(nql, generator=g, device=dev)
+    k = torch.randint(1, nk + 2, (nql,), generator=g, device=dev,
+                      dtype=torch.int32)
+    p_ring = ctx.prings[lanes].gather(
+        1, (k.clamp_max(nk).long() - 1)[:, None]).squeeze(1)
+    n_slabs = (p_ring + cfg.chunk - 1) // cfg.chunk
+    ci = (torch.rand(nql, generator=g, device=dev) * (n_slabs + 1)).int()
+    slab = (k, ci, lanes, lanes % nl, ctx.rks[lanes], ctx.prings[lanes],
+            ctx.caps[lanes], ctx.nbits[lanes], ctx.cums, view.bucket_starts,
+            view.order)
+    state0 = prober._init_state(ctx, est0, vis0, nk)
+    return slab, qual, (ctx, view, state0)
+
+
+def launches_of(torch, fn) -> tuple[int, int]:
+    """(host launch calls, device kernels) of one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    host = launch_calls(ka)
+    dev = sum(e.count for e in ka if e.device_type == DeviceType.CUDA
+              and "memcpy" not in e.key.lower()
+              and "memset" not in e.key.lower())
+    return host, dev
+
+
+def kernel_device_us(torch, fn, name, iters=20) -> float:
+    """Profiler device time per launch of kernel ``name`` over ``iters``
+    calls of ``fn`` (0 when the profiler saw none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(_device_us(e), e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(c for _, c in hits)
+    return sum(t for t, _ in hits) / n if n else 0.0
+
+
+def phase_slab(torch, tag, state, qs, taus, cfg, seed, step=False,
+               requal=None) -> dict:
+    """``slab_qualify`` against the slab path's composition before the
+    fusion (the torch candidate walk and the row kernels: the same sums)
+    and against its plain version (hard weights may move only where a d²
+    lies within MARGIN tau^2 of tau^2; banded sums within rtol 1e-6), with
+    CUDA-event and profiler times beside the bound; with ``step`` also the
+    launches of one slab step. ``requal`` may replace the qualification
+    inputs. Returns the kernel's result entry."""
+    from repro_torch.core import prober
+    from repro_torch.kernels import ops, ref
+    slab, qual, (ctx, view, state0) = slab_setup(torch, state, qs, taus,
+                                                 cfg, seed)
+    if requal is not None:
+        qual = requal(qual)
+    chunk = cfg.chunk
+    banded = qual.resid is not None
+    got = ops.slab_qualify(*slab, qual, chunk)
+    before = ref.slab_qualify(*slab, qual, chunk, rows=ops)
+    plain = ref.slab_qualify(*slab, qual, chunk)
+    ids, ok = ref.slab_candidates(*slab, chunk)
+    k, _, lanes = slab[:3]
+    kc = k.clamp_max(cfg.n_funcs)
+    exact = (kc <= qual.exact_rings) | (qual.codes is None)
+    if not (torch.equal(got[1], before[1]) and torch.equal(got[1], plain[1])):
+        raise AssertionError(f"slab_qualify[{tag}]: sample counts differ")
+    ties = torch.zeros_like(got[1])
+    if exact.any():
+        ex = torch.nonzero(exact).squeeze(1)
+        d2 = ((qual.x[ids[ex].long()].double()
+               - qual.qs[lanes[ex]][:, None].double()) ** 2).sum(-1)
+        t2 = qual.tau_sq[lanes[ex]][:, None].double()
+        ties[ex] = (((d2 - t2).abs() <= MARGIN * t2) & ok[ex]).sum(
+            1, dtype=torch.int32)
+    if banded:
+        for want in (before, plain):
+            torch.testing.assert_close(got[0], want[0], rtol=1e-6,
+                                       atol=1e-6)
+    elif not torch.equal(got[0], before[0]) or \
+            ((got[0] - plain[0]).abs() > ties).any():
+        raise AssertionError(f"slab_qualify[{tag}]: weight sums differ")
+    n_ok = ok.sum(1)
+    d = qual.x.shape[1]
+    lut_b = 0 if qual.codes is None else \
+        qual.luts[0].numel() * qual.luts.element_size()
+    cb = 0 if qual.codes is None else \
+        qual.codes.shape[1] + (4 if banded else 0)
+    # per drawn candidate: its row (or code row and residual), its starts
+    # and order entries and one 32-byte sector of the cumsum around the
+    # draw; per lane: its query row or LUT, state, constants and outputs
+    per = torch.where(exact, 4 * d, cb) + 4 + 4 + 32
+    nbytes = int((n_ok * per).sum()) + int(torch.where(
+        exact, 4 * d, lut_b).sum()) + k.numel() * (4 + 4 + 8 + 8 + 48 + 12
+                                                   + 12 + 8)
+    m = 0 if qual.codes is None else qual.luts.shape[1]
+    flops = int((n_ok * torch.where(exact, 3 * d, m)).sum())
+    res = dict(
+        max_abs_err=float((got[0] - plain[0]).abs().max()),
+        ms=cuda_ms(torch, lambda: ops.slab_qualify(*slab, qual, chunk)),
+        plain_ms=cuda_ms(torch, lambda: ref.slab_qualify(*slab, qual,
+                                                         chunk)),
+        bound=bound_ms(nbytes, flops), library_ms=None)
+    before_ms = cuda_ms(torch, lambda: ref.slab_qualify(*slab, qual, chunk,
+                                                        rows=ops))
+    dev_us = kernel_device_us(torch, lambda: ops.slab_qualify(
+        *slab, qual, chunk), "slab_qualify_kernel")
+    log(f"slab_qualify[{tag}, {k.numel()} lanes x {chunk}, B = "
+        f"{slab[8].shape[-1]}]: {int(n_ok.sum())} candidates drawn, "
+        f"{int(exact.sum())} lanes routed exact; counts equal, sums equal "
+        f"to the composition before the fusion{' (rtol 1e-6)' if banded else ''}, "
+        f"max |diff| to the plain version {res['max_abs_err']} "
+        f"({int(ties.sum())} d^2 within {MARGIN} tau^2 of tau^2)")
+    log(f"  wrapper {res['ms'] * 1e3:.2f} us per call (CUDA events), kernel "
+        f"{dev_us:.2f} us per launch on the device (profiler); plain "
+        f"{res['plain_ms']:.4f} ms, composition before the fusion "
+        f"{before_ms:.4f} ms; bound {res['bound'][0] * 1e3:.3f} us "
+        f"({res['bound'][1]}, {nbytes} bytes)")
+    if step:
+        s = {kk: v[lanes] for kk, v in state0.items()}
+        s["k"], s["ci"] = slab[0], slab[1]
+        small = ctx._replace(cums=None, rks=slab[4], prings=slab[5],
+                             caps=slab[6], nbits=slab[7],
+                             totals_f=ctx.totals_f[lanes],
+                             w_caps=ctx.w_caps[lanes],
+                             first_targets=ctx.first_targets[lanes])
+        plain = launches_of(torch, lambda: ref.slab_qualify(*slab, qual,
+                                                            chunk))
+        before = launches_of(torch, lambda: ref.slab_qualify(
+            *slab, qual, chunk, rows=ops))
+        now = launches_of(torch, lambda: ops.slab_qualify(*slab, qual,
+                                                          chunk))
+        step_now = launches_of(torch, lambda: prober._slab_step(
+            s, ctx, small, lanes, slab[3], view, qual, cfg))
+        for what, (host, dev) in (
+                ("plain candidate half (ref.slab_qualify)", plain),
+                ("candidate half before the fusion (torch walk + row "
+                 "kernel)", before),
+                ("candidate half now (ops.slab_qualify)", now),
+                ("whole slab step now (prober._slab_step)", step_now)):
+            log(f"  per slab, {what}: {host} launch calls, {dev} device "
+                "kernels")
+        log(f"  per slab, whole step before the fusion (derived): "
+            f"{step_now[0] - now[0] + before[0]} launch calls")
+    return res
 
 
 def phase_profile(torch, runs):
@@ -366,6 +563,10 @@ def phase_profile(torch, runs):
             f"{1 - busy / wall_us:.4f}); device time by operator:")
         for t, c, k in by_op[:10]:
             log(f"  {t:12.1f} us {c:6d} calls  {k}")
+        idx = [(t, c) for t, c, k in by_op if k == "aten::index"]
+        log(f"  aten::index: {sum(t for t, _ in idx) / 1e3:.3f} ms on the "
+            f"device over {sum(c for _, c in idx)} calls")
+        log(f"  launch calls: {launch_calls(ka)}")
         host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]
         log("  host (self CPU) time by operator: " + ", ".join(
             f"{e.key} {e.self_cpu_time_total:.0f} us / {e.count}"
@@ -376,7 +577,8 @@ def phase_profile(torch, runs):
             label = [k[k.index(n):].split("(")[0] for n in KERNEL_NAMES
                      if f"::{n}(" in k or f"::{n}<" in k]
             if e.device_type == DeviceType.CUDA and label:
-                log(f"  {t:12.1f} us {c:6d} calls  {label[0]}")
+                log(f"  {t:12.1f} us {c:6d} calls  {label[0]} "
+                    f"({t / c:.2f} us each)")
 
 
 def _device_us(e) -> float:
@@ -486,7 +688,7 @@ def check_decisions(torch, tag, got, want, tsq):
 
 def phase_pq_main_path(torch, corpus, qs, taus, seed):
     """The PQ path at SIFT1M scale under both PQ configs, plus the scan
-    baseline; returns the launch counts and the two states."""
+    baseline; returns the launch counts of each and the two states."""
     from repro_torch.core import baselines, estimator as E, pq as pqmod
     from repro_torch.core.config import ProberConfig
     from repro_torch.kernels import ops, ref
@@ -494,6 +696,16 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     cfg = ProberConfig(**PROBER_PQ_KW)
     scfg = ProberConfig(**SERVE_KW)
+    launches = {}
+
+    def read_launches(tag, need):
+        launches[tag] = dict(ops.LAUNCHES)
+        log(f"pq-path launches ({tag}): {json.dumps(launches[tag])}")
+        missing = [k for k in need if launches[tag][k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the PQ path "
+                                 f"({tag}): {missing}")
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     state, t_build = timed(torch, lambda: E.build(
@@ -540,7 +752,10 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
                   E.true_cardinality(state.x, qs, taus, n_valid=n_live))
     if state.capacity != 2 * CAPACITY:
         raise AssertionError("the growth update did not double capacity")
+    read_launches("prober_cfg", ("slab_qualify", "l2dist_rows", "lsh_hash",
+                                 "hamming_to_buckets"))
 
+    ops.reset_launches()
     sstate, t_build = timed(torch, lambda: E.build(
         corpus[:N], scfg, g, capacity=CAPACITY, device=dev))
     log(f"pq build (serve_cfg): {t_build:.3f} s, buckets "
@@ -554,21 +769,28 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
     summarize(torch, "pq estimate @ N (serve_cfg)", out[0], truth)
     log(f"  probed_k mean {float(out[1].float().mean()):.3f}, nvisited "
         f"mean {float(out[2].float().mean()):.1f}")
+    read_launches("serve_cfg", ("slab_qualify", "adc_rows_q8"))
 
+    ops.reset_launches()
+    fcfg = scfg.replace(pq_int8_lut=False)
+    out, t_est = timed(torch, lambda: E.estimate_batch_stats(
+        sstate, qs, taus, fcfg, rks=srks))
+    log(f"pq estimate_batch_stats (serve_cfg, float LUTs, Q={NQ}): "
+        f"{t_est * 1e3:.3f} ms")
+    summarize(torch, "pq estimate @ N (serve_cfg, float LUTs)", out[0],
+              truth)
+    read_launches("serve_cfg, float LUTs", ("slab_qualify", "adc_rows"))
+
+    ops.reset_launches()
     for rnd in ("first", "second"):
         counts, t_scan = timed(torch, lambda: baselines
                                .adc_scan_estimate_batch(sstate.pq, qs, taus))
         log(f"adc_scan_estimate_batch over {sstate.pq.capacity} codes "
             f"({rnd} call): {t_scan * 1e3:.3f} ms")
     summarize(torch, "full ADC scan @ N", counts, truth)
+    read_launches("adc scan", ("adc_batch",))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches = dict(ops.LAUNCHES)
     log(f"pq peak device memory: {peak:.3f} GiB")
-    log(f"pq-path launches: {json.dumps(launches)}")
-    missing = [k for k in ("adc_rows", "adc_rows_q8", "adc_batch",
-                           "l2dist_rows") if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the PQ path: {missing}")
     # the scan's counts against its plain version on the same LUTs
     luts = pqmod.adc_table(sstate.pq, qs).contiguous()
     plain = ref.adc_batch(sstate.pq.codes, luts)
@@ -586,7 +808,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
     return launches, state, sstate
 
 
-def phase_adc_kernels(torch, state, sstate, qs, taus) -> dict:
+def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
     """The four ADC kernels against their plain versions at the PQ path's
     shapes, then the packed layout; times, bounds and embedding_bag."""
     from repro_torch.core import pq as pqmod
@@ -633,13 +855,14 @@ def phase_adc_kernels(torch, state, sstate, qs, taus) -> dict:
             library_ms=cuda_ms(torch, lib, iters=5))
         del got, want
 
+    # the rows kernels at the central pass they serve on the main path:
+    # serve_cfg's (64 lanes x 512), with float and uint8 LUTs
     g = torch.Generator(device=dev).manual_seed(7)
     for name, fn, plain_fn, lut_stack, nl, c, cdes in (
             ("adc_rows", ops.adc_rows, ref.adc_rows, luts,
-             NQ * PROBER_PQ_KW["n_tables"], PROBER_PQ_KW["chunk"],
-             state.pq.codes),
+             NQ * SERVE_KW["n_tables"], SERVE_KW["central_budget"], codes),
             ("adc_rows_q8", ops.adc_rows_q8, ref.adc_rows_q8, qluts,
-             NQ * SERVE_KW["n_tables"], SERVE_KW["chunk"], codes)):
+             NQ * SERVE_KW["n_tables"], SERVE_KW["central_budget"], codes)):
         ids = torch.randint(0, N, (nl, c), generator=g, device=dev,
                             dtype=torch.int32)
         lane_q = (torch.arange(nl, device=dev) * nq // nl).to(torch.int32)
@@ -743,6 +966,9 @@ def main(argv=None) -> int:
     del index, x_pad
     torch.cuda.empty_cache()
     counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)
+    res["slab_qualify"] = phase_slab(torch, "exact", state, qs, taus, cfg,
+                                     args.seed, step=True)
+    torch.cuda.empty_cache()
     phase_profile(torch, exact_profile_runs(torch, state, qs, taus, cfg,
                                             args.seed))
     del state
@@ -750,10 +976,29 @@ def main(argv=None) -> int:
     phase_small_agreement(torch, cfg, args.seed)
     pq_counts, pstate, sstate = phase_pq_main_path(torch, corpus, qs, taus,
                                                    args.seed)
-    res.update(phase_adc_kernels(torch, pstate, sstate, qs, taus))
-    from repro_torch.core import estimator as E
+    res.update(phase_adc_kernels(torch, sstate, qs, taus))
+    from repro_torch.core import estimator as E, pq as pqmod
     g_pr = torch.Generator(device=dev).manual_seed(args.seed + 6)
     pcfg, scfg = ProberConfig(**PROBER_PQ_KW), ProberConfig(**SERVE_KW)
+
+    def packed(qual):
+        """The serving slab with random 4-bit codes and Kc = 16 LUTs."""
+        n, (nq, m, _) = qual.codes.shape[0], qual.luts.shape
+        codes = torch.randint(0, 16, (n, m), generator=g_pr, device=dev,
+                              dtype=torch.uint8)
+        luts = torch.randint(0, 256, (nq, m, 16), generator=g_pr,
+                             device=dev, dtype=torch.uint8)
+        return qual._replace(codes=pqmod.pack_codes(codes).contiguous(),
+                             luts=luts)
+
+    for tag, st, c, requal in (
+            ("prober_cfg PQ, mixed routing", pstate, pcfg, None),
+            ("prober_cfg PQ, banded", pstate, pcfg.replace(pq_banded=True),
+             None),
+            ("serve_cfg uint8", sstate, scfg, None),
+            ("serve_cfg uint8, packed codes", sstate, scfg, packed)):
+        phase_slab(torch, tag, st, qs, taus, c, args.seed, requal=requal)
+        torch.cuda.empty_cache()
     phase_profile(torch, [
         ("pq estimate_batch (prober_cfg)", lambda: E.estimate_batch(
             pstate, qs, taus, pcfg, generator=g_pr)),
@@ -767,9 +1012,11 @@ def main(argv=None) -> int:
             **CFG_KW, use_pq=True, pq_pack4=True, **kw), args.seed, tag)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
-    # kernels' from the PQ path (adc_batch_q8 has no path in the reference)
-    counts.update({k: pq_counts[k] for k in ("adc_rows", "adc_rows_q8",
-                                             "adc_batch", "adc_batch_q8")})
+    # kernels' from the PQ path's configs (adc_batch_q8 has no path in the
+    # reference)
+    counts.update({k: sum(w[k] for w in pq_counts.values())
+                   for k in ("adc_rows", "adc_rows_q8", "adc_batch",
+                             "adc_batch_q8")})
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k], launches=counts[k],

@@ -19,32 +19,30 @@ The PRP round keys are inputs: ``rks`` (Q, L, 6), int64 holding uint32
 values, one row per lane (the reference draws them with
 ``jax.random.bits`` under its key tree; the parity tests pass those in).
 
+Each slab step's candidate half — PRP draws, the search of the ring's
+size cumsum, the CSR lookups and the qualification — is one call of
+``ops.slab_qualify`` (one fused kernel on the card), which returns each
+lane's weight sum and sample count; the stopping rule stays here.
+
 PQ qualification ("Dynamic Prober-PQ", Alg. 4/5): with PQ codes and the
-batch's LUT stack, candidates qualify on their ADC distance through the
-fused ``adc_rows`` / ``adc_rows_q8`` kernels, which also read packed 4-bit
-codes directly (the reference's ``_gather_codes`` unpacks them first).
-Near rings ``k <= pq_exact_rings`` use exact distances: the reference's
-``lax.cond`` on ``k`` becomes a select under its ``vmap`` over lanes, and
-so here both distances are computed for the active lanes and selected per
-lane, with no host sync.
+batch's LUT stack, candidates qualify on their ADC distance (float, banded
+or uint8 LUTs; packed 4-bit codes are read directly, where the reference's
+``_gather_codes`` unpacks them first). Near rings ``k <= pq_exact_rings``
+use exact distances: the reference's ``lax.cond`` on ``k`` becomes a
+per-lane choice of route inside the slab kernel. The central bucket
+(Alg. 3) goes through the ``l2dist_rows`` / ``adc_rows[_q8]`` kernels.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import lsh, pq as pqmod, sampling
 from repro_torch.core.config import ProberConfig
-from repro_torch.kernels import ops
-
-# qualfn(ids (R, c) int32, lanes (R,) int64) -> (R, c) float32 weights in
-# [0, 1] (exact and hard ADC: 1[d² <= τ²]; banded ADC: a fraction)
-QualFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-# ring_fn(k (R,), ids, lanes): the qualification of ring k for each lane
-RingFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-_U32 = 0xFFFFFFFF
+from repro_torch.kernels import ops, ref
+# the PRP of Alg. 2 lives beside the slab kernel's plain version
+from repro_torch.kernels.ref import prp_eval as _prp_eval  # noqa: F401
 
 
 class TableView(NamedTuple):
@@ -98,33 +96,16 @@ def ring_cumsums(view: TableView, ham: torch.Tensor,
     return cums.reshape(nq * nl, n_rings + 1, nb)
 
 
-def _prp_eval(idx: torch.Tensor, rks: torch.Tensor, mask: torch.Tensor,
-              n_bits: torch.Tensor) -> torch.Tensor:
-    """Keyed multiply/xorshift PRP on Z_{2^n}, ``mask = 2^n - 1``.
-
-    ``idx`` (..., c), ``rks`` (..., 6), ``mask`` and ``n_bits`` (...). The
-    reference computes in uint32; torch has no uint32 right shift on the
-    CPU, so this computes in int64, where every intermediate is exact
-    (idx < 2^14, multiplier < 2^32) and masking with ``mask < 2^32`` keeps
-    exactly the low bits uint32 wrap-around would keep.
-    """
-    x = idx.long() & _U32
-    mask = mask.long()[..., None]
-    n_bits = n_bits.long()[..., None]
-    for i in range(3):
-        x = (x * (rks[..., 2 * i, None] | 1)) & mask
-        x = x ^ (x >> (n_bits // 2 + (i % 2) + 1))
-        x = (x + rks[..., 2 * i + 1, None]) & mask
-    return x.to(torch.int32)
-
-
 def _count_central(view: TableView, tid: torch.Tensor, cum0: torch.Tensor,
-                   qualfn: QualFn, lanes: torch.Tensor, cfg: ProberConfig):
+                   qual: ops.Qual, exact: bool, lanes: torch.Tensor,
+                   cfg: ProberConfig):
     """Alg. 3: exact count inside B_central for every lane, scaled by
-    ``total/seen`` when the bucket exceeds ``central_budget``."""
+    ``total/seen`` when the bucket exceeds ``central_budget``; candidates
+    qualify exactly, or by ADC when ``exact`` is False."""
     ids, valid, total = gather_ring_from_cum(view, tid, cum0,
                                              cfg.central_budget)
-    qualified = (qualfn(ids, lanes) * valid).sum(-1)
+    qualified = (ref.qualify(qual, ids, lanes, exact, rows=ops)
+                 * valid).sum(-1)
     seen = valid.sum(-1, dtype=torch.int32)
     scale = torch.where(seen > 0, total / seen.clamp_min(1), 0.0)
     return qualified * scale, seen
@@ -151,7 +132,7 @@ def _bit_length(v: torch.Tensor) -> torch.Tensor:
 
 
 def _table_setup(view: TableView, ham: torch.Tensor, rks: torch.Tensor,
-                 tid: torch.Tensor, central_qualfn: QualFn,
+                 tid: torch.Tensor, qual: ops.Qual, central_exact: bool,
                  cfg: ProberConfig):
     """Loop-free ring construction for every lane: ring cumsums, the exact
     central count (Alg. 3), PRP domains and Chernoff schedule anchors.
@@ -160,7 +141,7 @@ def _table_setup(view: TableView, ham: torch.Tensor, rks: torch.Tensor,
     cums = ring_cumsums(view, ham, n_rings)
     lanes = torch.arange(cums.shape[0], device=cums.device)
     est0, visited0 = _count_central(view, tid, cums[:, 0].contiguous(),
-                                    central_qualfn, lanes, cfg)
+                                    qual, central_exact, lanes, cfg)
     totals = cums[:, 1:, -1]
     totals_f = totals.float()
     caps = totals.clamp_max(cfg.ring_budget)
@@ -191,7 +172,7 @@ def _row(t: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
 
 
 def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
-               tid: torch.Tensor, view: TableView, ring_fn: RingFn,
+               tid: torch.Tensor, view: TableView, qual: ops.Qual,
                cfg: ProberConfig) -> dict:
     """One progressive-sampling slab (Alg. 2 body) for the active lanes.
 
@@ -202,27 +183,17 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
     """
     chunk = cfg.chunk
     n_rings = view.bucket_codes.shape[-1]
-    nb = view.bucket_sizes.shape[-1]
-    n_points = view.order.shape[-1]
-    slot = torch.arange(chunk, dtype=torch.int32, device=lanes.device)
     k, ci = s["k"], s["ci"]
+    wq_add, w_add = ops.slab_qualify(
+        k, ci, lanes, tid, small.rks, small.prings, small.caps, small.nbits,
+        ctx.cums, view.bucket_starts, view.order, qual, chunk)
     # lanes that finished earlier in the block (k = K+1) still run the step
     # and are discarded by the caller; clamp their ring to a valid row, as
     # the reference's clamped gathers do
-    kc = k.clamp_max(n_rings).long()
-    row = kc - 1
+    row = k.clamp_max(n_rings).long() - 1
     p_ring = _row(small.prings, row)
-    idx = ci[:, None] * chunk + slot
-    p_slab = _prp_eval(idx, small.rks, p_ring - 1, _row(small.nbits, row))
-    cum = ctx.cums[lanes, kc]                           # (A, B)
-    ok = (idx < p_ring[:, None]) & (p_slab < _row(small.caps, row)[:, None])
-    j = torch.searchsorted(cum, p_slab, right=True).clamp_max(nb - 1)
-    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
-    pos = view.bucket_starts[tid[:, None], j] + (p_slab - prev)
-    pos = torch.where(ok, pos, 0).clamp(0, n_points - 1)
-    sl = view.order[tid[:, None], pos.long()]
-    wq = s["wq"] + (ring_fn(k, sl, lanes) * ok).sum(-1)
-    w = s["w"] + ok.sum(-1, dtype=torch.int32)
+    wq = s["wq"] + wq_add
+    w = s["w"] + w_add
     exhausted = (ci + 1) * chunk >= p_ring
     wf = w.float()
     ring_est = _row(small.totals_f, row) * wq / wf.clamp_min(1.0)
@@ -255,7 +226,7 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
 
 
 def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
-               lane_t: torch.Tensor, ring_fn: RingFn,
+               lane_t: torch.Tensor, qual: ops.Qual,
                cfg: ProberConfig) -> dict:
     """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
     steps over the active lanes, one host sync per block, then compaction.
@@ -272,8 +243,7 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                              first_targets=ctx.first_targets[active])
         tid = lane_t[active]
         for _ in range(block):
-            new = _slab_step(s, ctx, small, active, tid, view, ring_fn,
-                             cfg)
+            new = _slab_step(s, ctx, small, active, tid, view, qual, cfg)
             s = {kk: torch.where(s["done"], s[kk], new[kk]) for kk in s}
         for kk, v in s.items():
             state[kk][active] = v
@@ -281,98 +251,29 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
     return state
 
 
-def make_exact_qualfn(x: torch.Tensor, qs_lane: torch.Tensor,
-                      tau_sq_lane: torch.Tensor) -> QualFn:
-    """Exact squared-L2 qualification (Def. 3), 1[d² <= τ²], for lanes whose
-    queries are ``qs_lane`` (QL, d) and squared radii ``tau_sq_lane`` (QL,).
-    Distances go through the fused gather + ``l2dist_rows`` kernel."""
-    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
-        d2 = ops.l2dist_rows(x, ids, qs_lane[lanes].contiguous())
-        return (d2 <= tau_sq_lane[lanes, None]).float()
-    return fn
-
-
-def make_adc_qualfn(codes: torch.Tensor, luts: torch.Tensor,
-                    lane_q: torch.Tensor, tau_sq_lane: torch.Tensor,
-                    resid: torch.Tensor | None = None, banded: bool = False,
-                    packed: torch.Tensor | None = None) -> QualFn:
-    """PQ-ADC qualification through the LUT stack ``luts`` (Q, M, Kc),
-    lane i using LUT ``lane_q[i]`` (Alg. 5). ``banded=False`` is the
-    paper's hard threshold on the ADC distance; ``banded=True`` weighs each
-    candidate by the fraction of its residual band [max(0, adc − r), adc +
-    r] that lies below τ (r = ||p − q(p)||, the triangle inequality).
-    ``packed`` codes, when given, are read instead of the byte codes."""
-    src = codes if packed is None else packed
-    lane_q32 = lane_q.to(torch.int32)
-
-    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
-        adc_sq = ops.adc_rows(src, ids, luts, lane_q32[lanes].contiguous())
-        tau_sq = tau_sq_lane[lanes, None]
-        if not banded or resid is None:
-            return (adc_sq <= tau_sq).float()
-        adc = torch.sqrt(adc_sq.clamp_min(0.0))
-        r = resid[ids.long()]
-        lo = (adc - r).clamp_min(0.0)
-        hi = adc + r
-        tau = torch.sqrt(tau_sq)
-        w = torch.where(hi > lo, (tau - lo) / (hi - lo).clamp_min(1e-12),
-                        (adc <= tau).float())
-        return w.clamp(0.0, 1.0)
-    return fn
-
-
-def make_adc_qualfn_q8(codes: torch.Tensor, qlut: pqmod.QuantLUT,
-                       lane_q: torch.Tensor, tau_sq: torch.Tensor,
-                       packed: torch.Tensor | None = None) -> QualFn:
-    """Quantized ADC qualification (the reference's DESIGN.md §11): int32
-    sums of the uint8 LUT stack ``qlut.q8`` (Q, M, Kc) against each
-    query's ``quantized_threshold``; ``tau_sq`` is per query (Q,)."""
-    src = codes if packed is None else packed
-    lane_q32 = lane_q.to(torch.int32)
-    thresh = pqmod.quantized_threshold(qlut, qlut.q8.shape[1],
-                                       tau_sq)[lane_q]        # (QL,)
-
-    def fn(ids: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
-        s = ops.adc_rows_q8(src, ids, qlut.q8, lane_q32[lanes].contiguous())
-        return (s <= thresh[lanes, None]).float()
-    return fn
-
-
-def _make_qualfns(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
-                  pq_luts=None, pq_resid=None, pq_packed=None):
-    """Qualification routing: returns (qualfn, central_qualfn,
-    exact_qualfn) — the ring function, the exact function for B_central
-    (None: use ``qualfn``, the ``pq_exact_central=False`` serving trade)
-    and the exact function for near rings k <= ``pq_exact_rings`` (None:
-    ADC everywhere). ``pq_luts`` is a float (Q, M, Kc) stack or a batched
-    :class:`~repro_torch.core.pq.QuantLUT`."""
-    tau_sq_lane = tau_sq[lane_q]
-    exact = make_exact_qualfn(x, qs[lane_q].contiguous(), tau_sq_lane)
+def _make_qual(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
+               pq_luts=None, pq_resid=None, pq_packed=None) -> ops.Qual:
+    """Qualification inputs of the batch's Q·L lanes (lane i holds query
+    ``lane_q[i]``): exact only, or the PQ routing of ``cfg`` — ADC beyond
+    ring ``pq_exact_rings`` through the float (Q, M, Kc) LUT stack (banded
+    with ``pq_banded``) or a batched :class:`~repro_torch.core.pq.QuantLUT`
+    against its integer thresholds; ``pq_packed`` codes, when given, are
+    read instead of the byte codes."""
+    qual = ops.Qual(x, qs[lane_q].contiguous(), tau_sq[lane_q].contiguous())
     if pq_codes is None or pq_luts is None:
-        return exact, None, None
+        return qual
+    codes = pq_codes if pq_packed is None else pq_packed
+    lane_q32 = lane_q.to(torch.int32)
     if isinstance(pq_luts, pqmod.QuantLUT):
-        qualfn = make_adc_qualfn_q8(pq_codes, pq_luts, lane_q, tau_sq,
-                                    packed=pq_packed)
-    else:
-        qualfn = make_adc_qualfn(pq_codes, pq_luts, lane_q, tau_sq_lane,
-                                 resid=pq_resid, banded=cfg.pq_banded,
-                                 packed=pq_packed)
-    return (qualfn, exact if cfg.pq_exact_central else None,
-            exact if cfg.pq_exact_rings > 0 else None)
-
-
-def _make_ring_fn(qualfn: QualFn, exact_qualfn: QualFn | None,
-                  cfg: ProberConfig) -> RingFn:
-    """Per-ring dispatch: lanes in a near ring k <= ``pq_exact_rings`` take
-    the exact qualification, the others ``qualfn``. Both are computed for
-    the active lanes and selected per lane (no host sync)."""
-    if exact_qualfn is None or cfg.pq_exact_rings <= 0:
-        return lambda k, ids, lanes: qualfn(ids, lanes)
-
-    def fn(k, ids, lanes):
-        near = (k <= cfg.pq_exact_rings)[:, None]
-        return torch.where(near, exact_qualfn(ids, lanes), qualfn(ids, lanes))
-    return fn
+        thresh = pqmod.quantized_threshold(pq_luts, pq_luts.q8.shape[1],
+                                           tau_sq)[lane_q]
+        return qual._replace(codes=codes, luts=pq_luts.q8.contiguous(),
+                             lane_q=lane_q32, thresh=thresh.contiguous(),
+                             exact_rings=cfg.pq_exact_rings)
+    return qual._replace(codes=codes, luts=pq_luts.contiguous(),
+                         lane_q=lane_q32,
+                         resid=pq_resid if cfg.pq_banded else None,
+                         exact_rings=cfg.pq_exact_rings)
 
 
 def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
@@ -401,16 +302,14 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
     lane = torch.arange(nq * nl, device=dev)
     lane_q, lane_t = lane // nl, lane % nl
-    qualfn, central_qualfn, exact_qualfn = _make_qualfns(
-        x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts, pq_resid,
-        pq_packed)
+    qual = _make_qual(x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts,
+                      pq_resid, pq_packed)
     ctx, est0, visited0 = _table_setup(
         view, ham, rks.to(dev, torch.int64).reshape(nq * nl, 6), lane_t,
-        central_qualfn or qualfn, cfg)
+        qual, qual.codes is None or cfg.pq_exact_central, cfg)
     del ham
     state = _init_state(ctx, est0, visited0, n_rings)
-    state = _run_lanes(state, ctx, view, lane_t,
-                       _make_ring_fn(qualfn, exact_qualfn, cfg), cfg)
+    state = _run_lanes(state, ctx, view, lane_t, qual, cfg)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests

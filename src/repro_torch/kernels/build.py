@@ -4,8 +4,8 @@ One ``nvcc`` per source, all started together, then one link, into
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``).
 The library has a plain C interface and is loaded with ``ctypes``; every
 entry point returns ``cudaGetLastError()``. The library's name carries a
-hash of the sources, so an edited source is rebuilt and a stale library is
-never loaded.
+hash of the sources and the headers beside them, so an edited source is
+rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ SIGNATURES = {
     "adc_rows_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "adc_batch_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
     "adc_batch_u8": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
 }
 
 
@@ -103,7 +104,7 @@ def load() -> Built:
     if _BUILT is not None:
         return _BUILT
     digest = hashlib.sha256()
-    for s in _sources():
+    for s in _sources() + sorted(CSRC.glob("*.cuh")):
         digest.update(s.name.encode())
         digest.update(s.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())

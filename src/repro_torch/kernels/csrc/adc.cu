@@ -39,69 +39,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adc_sum.cuh"
+
 namespace {
 
-constexpr int MAXW = 16;                 // code row words in registers
 constexpr int ROWS_THREADS = 128;
 constexpr int ROWS_PER_BLOCK = 512;
 constexpr int BATCH_THREADS = 512;
 constexpr int BATCH_LUT_BYTES = 128 * 1024;
-
-// A code row of cb <= 4 * MAXW bytes as 32-bit words in registers; align is
-// 16 (uint4 loads), 4 (word loads) or 1 (byte loads).
-__device__ __forceinline__ void load_row(const uint8_t* __restrict__ row,
-                                         int cb, int align,
-                                         unsigned (&wd)[MAXW]) {
-  if (align == 16) {
-#pragma unroll
-    for (int i = 0; i < MAXW / 4; ++i) {
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (16 * i < cb) v = __ldg(reinterpret_cast<const uint4*>(row) + i);
-      wd[4 * i] = v.x;
-      wd[4 * i + 1] = v.y;
-      wd[4 * i + 2] = v.z;
-      wd[4 * i + 3] = v.w;
-    }
-  } else if (align == 4) {
-#pragma unroll
-    for (int w = 0; w < MAXW; ++w)
-      wd[w] = 4 * w < cb ? __ldg(reinterpret_cast<const unsigned*>(row) + w)
-                         : 0u;
-  } else {
-#pragma unroll
-    for (int w = 0; w < MAXW; ++w) {
-      unsigned v = 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (4 * w + j < cb) v |= (unsigned)__ldg(row + 4 * w + j) << (8 * j);
-      wd[w] = v;
-    }
-  }
-}
-
-// sum_m lut[m * kc + code_m], m in order.
-template <bool PACK, typename T, typename Acc>
-__device__ __forceinline__ Acc adc_sum(const unsigned (&wd)[MAXW], int cb,
-                                       const T* lut, int kc) {
-  Acc acc = 0;
-#pragma unroll
-  for (int w = 0; w < MAXW; ++w) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = 4 * w + j;
-      if (b < cb) {
-        const unsigned v = (wd[w] >> (8 * j)) & 0xFFu;
-        if (PACK) {
-          acc += (Acc)lut[(2 * b) * kc + (v & 0xFu)];
-          acc += (Acc)lut[(2 * b + 1) * kc + (v >> 4)];
-        } else {
-          acc += (Acc)lut[b * kc + v];
-        }
-      }
-    }
-  }
-  return acc;
-}
 
 // Copy `bytes` from global to shared memory; 16 bytes a load where both
 // ends allow it.
@@ -160,15 +105,6 @@ adc_batch_kernel(const uint8_t* __restrict__ codes, const T* __restrict__ luts,
       out[(int64_t)(q0 + q) * n + row] =
           adc_sum<PACK, T, Acc>(wd, cb, lut + q * mk, kc);
   }
-}
-
-// Shared memory above the default 48 KB has to be asked for per kernel.
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
 }
 
 template <bool PACK, typename T, typename Acc>

@@ -9,6 +9,8 @@ count in :data:`LAUNCHES` — there and nowhere else.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import ref
@@ -16,7 +18,7 @@ from repro_torch.kernels import ref
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
                             "l2dist": 0, "l2dist_rows": 0, "adc_rows": 0,
                             "adc_rows_q8": 0, "adc_batch": 0,
-                            "adc_batch_q8": 0}
+                            "adc_batch_q8": 0, "slab_qualify": 0}
 
 
 def reset_launches() -> None:
@@ -272,3 +274,129 @@ def adc_q8(codes: torch.Tensor, qlut: torch.Tensor) -> torch.Tensor:
     """codes (N, M), qlut (M, Kc) uint8 → (N,) int32: the Q = 1 call of
     :func:`adc_batch_q8`."""
     return adc_batch_q8(_byte_codes(codes), qlut[None].contiguous())[0]
+
+
+# ---- the prober's slab step (Alg. 2 body) --------------------------------
+
+class Qual(NamedTuple):
+    """What candidates qualify by, per lane (lane i of Q·L holds query
+    ``lane_q[i]``). Without ``codes`` every candidate qualifies exactly,
+    1[d² <= τ²]; with PQ codes rings above ``exact_rings`` qualify by ADC
+    through the lane's LUT: a hard threshold, the banded weight when
+    ``resid`` is given, or int32 sums of a uint8 LUT against ``thresh``."""
+    x: torch.Tensor                      # (C, d) float32 corpus rows
+    qs: torch.Tensor                     # (QL, d) float32 each lane's query
+    tau_sq: torch.Tensor                 # (QL,) float32 each lane's τ²
+    codes: torch.Tensor | None = None    # (C, M) uint8, or (C, M/2) packed
+    luts: torch.Tensor | None = None     # (Q, M, Kc) float32 or uint8
+    lane_q: torch.Tensor | None = None   # (QL,) int32 each lane's LUT
+    resid: torch.Tensor | None = None    # (C,) float32: banded float ADC
+    thresh: torch.Tensor | None = None   # (QL,) int32: uint8 thresholds
+    exact_rings: int = 0                 # rings k <= this qualify exactly
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
+                 tid: torch.Tensor, rks: torch.Tensor, prings: torch.Tensor,
+                 caps: torch.Tensor, nbits: torch.Tensor, cums: torch.Tensor,
+                 starts: torch.Tensor, order: torch.Tensor, qual: Qual,
+                 chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One progressive-sampling slab for A active lanes, candidate walk and
+    qualification fused: ``(wq_add (A,) float32, w_add (A,) int32)``.
+
+    Lane ``a`` (lane id ``lanes[a]``, table ``tid[a]``, both int64) in ring
+    ``kc = min(k[a], K)`` draws slots ``ci[a]·chunk + s`` of its PRP (round
+    keys ``rks`` (A, 6) int64; ring tables ``prings``/``caps``/``nbits``
+    (A, K) int32), resolves each draw through row ``cums[lanes[a], kc]`` of
+    the (QL, K+1, B) ring cumsums and the CSR arrays ``starts`` (L, B) and
+    ``order`` (L, C), qualifies the candidates as ``qual`` routes ring
+    ``kc``, and sums their weights and count. Every lane and table id must
+    lie in range.
+    """
+    opt = [t for t in qual[3:8] if t is not None]
+    if _on_cpu(k, ci, lanes, tid, rks, prings, caps, nbits, cums, starts,
+               order, qual.x, qual.qs, qual.tau_sq, *opt):
+        return ref.slab_qualify(k, ci, lanes, tid, rks, prings, caps, nbits,
+                                cums, starts, order, qual, chunk)
+    for t, nm in ((k, "k"), (ci, "ci")):
+        _check(t, nm, torch.int32, 1)
+    for t, nm in ((lanes, "lanes"), (tid, "tid")):
+        _check(t, nm, torch.int64, 1)
+    _check(rks, "rks", torch.int64, 2)
+    for t, nm in ((prings, "prings"), (caps, "caps"), (nbits, "nbits")):
+        _check(t, nm, torch.int32, 2)
+    _check(cums, "cums", torch.int32, 3)
+    _check(starts, "starts", torch.int32, 2)
+    _check(order, "order", torch.int32, 2)
+    _check(qual.x, "x", torch.float32, 2)
+    _check(qual.qs, "qs", torch.float32, 2)
+    _check(qual.tau_sq, "tau_sq", torch.float32, 1)
+    na, n_rings = prings.shape
+    nql, _, nb = cums.shape
+    nl, n_points = order.shape
+    d = qual.x.shape[1]
+    if (k.shape[0] != na or ci.shape[0] != na or lanes.shape[0] != na
+            or tid.shape[0] != na or rks.shape != (na, 6)
+            or caps.shape != prings.shape or nbits.shape != prings.shape
+            or cums.shape[1] != n_rings + 1 or starts.shape != (nl, nb)
+            or qual.x.shape[0] < n_points or qual.qs.shape != (nql, d)
+            or qual.tau_sq.shape != (nql,)):
+        shapes = {nm: tuple(t.shape) for nm, t in (
+            ("k", k), ("ci", ci), ("lanes", lanes), ("tid", tid),
+            ("rks", rks), ("prings", prings), ("caps", caps),
+            ("nbits", nbits), ("cums", cums), ("starts", starts),
+            ("order", order), ("x", qual.x), ("qs", qual.qs),
+            ("tau_sq", qual.tau_sq))}
+        raise ValueError(f"slab_qualify shapes do not agree: {shapes}")
+    if n_rings < 1 or chunk < 1:
+        raise ValueError(f"slab_qualify needs K >= 1 rings and chunk >= 1, "
+                         f"got K={n_rings}, chunk={chunk}")
+    mode, m, kc, cb, packed, align, lut_bytes = 0, 0, 0, 0, 0, 0, 0
+    if qual.codes is not None:
+        q8 = qual.thresh is not None
+        m, kc, cb, packed, align = _adc_layout(
+            qual.codes, qual.luts, torch.uint8 if q8 else torch.float32)
+        _check(qual.lane_q, "lane_q", torch.int32, 1)
+        if qual.lane_q.shape[0] != nql or qual.codes.shape[0] < n_points:
+            raise ValueError(f"lane_q{tuple(qual.lane_q.shape)} and codes"
+                             f"{tuple(qual.codes.shape)} for {nql} lanes "
+                             f"and {n_points} points")
+        if q8:
+            _check(qual.thresh, "thresh", torch.int32, 1)
+            if qual.thresh.shape[0] != nql or qual.resid is not None:
+                raise ValueError("uint8 LUTs take (QL,) thresholds and no "
+                                 "residuals")
+        elif qual.resid is not None:
+            _check(qual.resid, "resid", torch.float32, 1)
+            if qual.resid.shape[0] != qual.codes.shape[0]:
+                raise ValueError(f"resid{tuple(qual.resid.shape)} for codes"
+                                 f"{tuple(qual.codes.shape)}")
+        mode = 2 if q8 else 1
+        lut_bytes = m * kc * qual.luts.element_size()
+    # a lane's chunk is split over up to 4 blocks (one cluster) of <= 128
+    # slots each where it can be; a block's dynamic shared memory holds the
+    # lane's query row or LUT, then an id and a weight per slot
+    splits = min(4, -(-chunk // 128))
+    slots = -(-chunk // splits)
+    smem = -(-8 * slots // 16) * 16 + -(-max(4 * d, lut_bytes) // 16) * 16
+    if smem > 200 * 1024:
+        raise ValueError(f"d={d}, a {lut_bytes}-byte LUT and {slots} slots "
+                         "per block do not fit shared memory")
+    vec = int(d % 4 == 0 and qual.x.data_ptr() % 16 == 0)
+    wq_add = torch.empty(na, dtype=torch.float32, device=k.device)
+    w_add = torch.empty(na, dtype=torch.int32, device=k.device)
+    if na:
+        _launch("slab_qualify", "slab_qualify", k.data_ptr(), ci.data_ptr(),
+                lanes.data_ptr(), tid.data_ptr(), rks.data_ptr(),
+                prings.data_ptr(), caps.data_ptr(), nbits.data_ptr(),
+                cums.data_ptr(), starts.data_ptr(), order.data_ptr(),
+                qual.x.data_ptr(), qual.qs.data_ptr(), qual.tau_sq.data_ptr(),
+                _ptr(qual.codes), _ptr(qual.luts), _ptr(qual.lane_q),
+                _ptr(qual.resid), _ptr(qual.thresh), wq_add.data_ptr(),
+                w_add.data_ptr(), na, n_rings, nb, n_points, d, chunk,
+                qual.exact_rings, mode, cb, m, kc, packed, align, vec, splits,
+                smem)
+    return wq_add, w_add

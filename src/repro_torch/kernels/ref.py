@@ -98,3 +98,114 @@ def adc_rows(codes, ids, luts, lane_q):
 
 
 adc_rows_q8 = adc_rows
+
+
+# ---- the prober's slab step (Alg. 2 body): candidates and qualification --
+
+_U32 = 0xFFFFFFFF
+
+
+def prp_eval(idx, rks, mask, n_bits):
+    """Keyed multiply/xorshift PRP on Z_{2^n}, ``mask = 2^n - 1``.
+
+    ``idx`` (..., c), ``rks`` (..., 6), ``mask`` and ``n_bits`` (...). The
+    reference computes in uint32; torch has no uint32 right shift on the
+    CPU, so this computes in int64, where every intermediate is exact
+    (idx < 2^14, multiplier < 2^32) and masking with ``mask < 2^32`` keeps
+    exactly the low bits uint32 wrap-around would keep.
+    """
+    x = idx.long() & _U32
+    mask = mask.long()[..., None]
+    n_bits = n_bits.long()[..., None]
+    for i in range(3):
+        x = (x * (rks[..., 2 * i, None] | 1)) & mask
+        x = x ^ (x >> (n_bits // 2 + (i % 2) + 1))
+        x = (x + rks[..., 2 * i + 1, None]) & mask
+    return x.to(torch.int32)
+
+
+def _row(t, row):
+    return t.gather(1, row[:, None]).squeeze(1)
+
+
+def band_weight(adc_sq, r, tau_sq):
+    """Banded ADC weight: the fraction of the residual band [max(0, adc −
+    r), adc + r] that lies below τ (r = ||p − q(p)||)."""
+    adc = torch.sqrt(adc_sq.clamp_min(0.0))
+    lo = (adc - r).clamp_min(0.0)
+    hi = adc + r
+    tau = torch.sqrt(tau_sq)
+    w = torch.where(hi > lo, (tau - lo) / (hi - lo).clamp_min(1e-12),
+                    (adc <= tau).float())
+    return w.clamp(0.0, 1.0)
+
+
+def qualify(qual, ids, lanes, exact: bool, rows=None):
+    """Qualification weights (R, c) in [0, 1] of candidates ``ids`` (R, c)
+    int32 for lanes ``lanes`` (R,) under ``qual`` (an :class:`ops.Qual`):
+    exact 1[d² <= τ²], or ADC through the lane's LUT (hard, banded, or
+    int32 sums of a uint8 LUT against the lane's threshold). ``rows`` is
+    the module whose ``l2dist_rows`` / ``adc_rows`` / ``adc_rows_q8``
+    compute the sums: these plain versions by default, ``ops`` for the
+    kernels."""
+    l2, adc, adc8 = (l2dist_rows, adc_rows, adc_rows_q8) if rows is None \
+        else (rows.l2dist_rows, rows.adc_rows, rows.adc_rows_q8)
+    if exact:
+        d2 = l2(qual.x, ids, qual.qs[lanes].contiguous())
+        return (d2 <= qual.tau_sq[lanes, None]).float()
+    lane_q = qual.lane_q[lanes].contiguous()
+    if qual.thresh is not None:
+        s = adc8(qual.codes, ids, qual.luts, lane_q)
+        return (s <= qual.thresh[lanes, None]).float()
+    adc_sq = adc(qual.codes, ids, qual.luts, lane_q)
+    tau_sq = qual.tau_sq[lanes, None]
+    if qual.resid is None:
+        return (adc_sq <= tau_sq).float()
+    return band_weight(adc_sq, qual.resid[ids.long()], tau_sq)
+
+
+def slab_candidates(k, ci, lanes, tid, rks, prings, caps, nbits, cums,
+                    starts, order, chunk: int):
+    """One slab's candidates for each active lane: ids (A, chunk) int32
+    and the mask ``ok`` (A, chunk). Lane ``a`` walks slots ``ci[a]·chunk +
+    s`` of the PRP over ring ``min(k[a], K)``'s domain and resolves each
+    draw through row ``cums[lanes[a], ring]`` of the ring size cumsums and
+    its table ``tid[a]``'s CSR arrays ``starts`` (L, B) and ``order`` (L,
+    C). Lanes that finished (k = K+1) are clamped to ring K, as the
+    reference's clamped gathers are."""
+    n_rings = prings.shape[1]
+    nb = cums.shape[-1]
+    n_points = order.shape[-1]
+    slot = torch.arange(chunk, dtype=torch.int32, device=k.device)
+    kc = k.clamp_max(n_rings).long()
+    row = kc - 1
+    p_ring = _row(prings, row)
+    idx = ci[:, None] * chunk + slot
+    p_slab = prp_eval(idx, rks, p_ring - 1, _row(nbits, row))
+    cum = cums[lanes, kc]                               # (A, B)
+    ok = (idx < p_ring[:, None]) & (p_slab < _row(caps, row)[:, None])
+    j = torch.searchsorted(cum, p_slab, right=True).clamp_max(nb - 1)
+    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
+    pos = starts[tid[:, None], j] + (p_slab - prev)
+    pos = torch.where(ok, pos, 0).clamp(0, n_points - 1)
+    return order[tid[:, None], pos.long()], ok
+
+
+def slab_qualify(k, ci, lanes, tid, rks, prings, caps, nbits, cums, starts,
+                 order, qual, chunk: int, rows=None):
+    """One slab step's qualification sums for each active lane: ``wq_add``
+    (A,) float32, the sum of the qualified candidates' weights, and
+    ``w_add`` (A,) int32, the number of candidates drawn. Ring ``min(k,
+    K)`` qualifies exactly when there are no PQ codes or it is a near ring
+    (<= ``qual.exact_rings``), else by ADC; both are computed and one is
+    selected per lane. ``rows`` is passed on to :func:`qualify`."""
+    sl, ok = slab_candidates(k, ci, lanes, tid, rks, prings, caps, nbits,
+                             cums, starts, order, chunk)
+    if qual.codes is None:
+        wt = qualify(qual, sl, lanes, True, rows)
+    else:
+        wt = qualify(qual, sl, lanes, False, rows)
+        if qual.exact_rings > 0:
+            near = (k.clamp_max(prings.shape[1]) <= qual.exact_rings)[:, None]
+            wt = torch.where(near, qualify(qual, sl, lanes, True, rows), wt)
+    return (wt * ok).sum(-1), ok.sum(-1, dtype=torch.int32)
