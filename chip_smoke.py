@@ -11,7 +11,8 @@ Phases, in order; each raises on failure:
    process per source, in parallel); print seconds and ptxas lines.
 3. Each kernel wrapper against its plain PyTorch version at the main path's
    shapes, with the stated tolerances; CUDA-event times of the kernel, the
-   plain version and (for ``l2dist``) ``torch.cdist``, beside the bound.
+   plain version and (for ``l2dist`` and ``hamming_to_buckets``)
+   ``torch.cdist``, beside the bound.
 4. The main path at SIFT1M scale (N = 1,000,000, d = 128): ``build`` at
    capacity 2^20, 64 paper-protocol queries through
    ``estimate_batch_stats``, an in-capacity ``update`` of 16,384 points, an
@@ -39,7 +40,8 @@ Phases, in order; each raises on failure:
    full-ADC-scan baseline, held against its plain version.
 9. The four ADC kernels against their plain versions at the PQ path's
    shapes (and the packed 4-bit layout), with CUDA-event times of the
-   kernel, the plain version and ``embedding_bag`` beside the bound; then
+   kernel, the plain version and ``embedding_bag`` beside the bound (and,
+   for ``adc_batch[_q8]``, beside the shared-memory word ceiling); then
    ``slab_qualify`` against its plain version on the PQ states: mixed
    routing and banded weights at 2^21, ``serve_cfg``'s uint8 slab (64 x
    512) with byte and packed codes.
@@ -141,6 +143,14 @@ def phase_build():
         log(f"  {line}")
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock as ``nvidia-smi`` reports it."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return float(smi.stdout.split()[0]) * 1e6
+
+
 def near_integer(torch, x, a, b, w):
     v = (x.double() @ a.double() + (b * w).double()) / w.double()
     return (v - torch.round(v)).abs() < MARGIN
@@ -174,8 +184,13 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
         plain_ms=cuda_ms(torch, lambda: ref.lsh_hash(qs, p.a, p.b, p.w)),
         bound=bound_ms(4 * (n * d + d * f + 2 * f + n * f), 2 * n * d * f),
         library_ms=None)
-    log(f"lsh_hash[corpus] kernel {cuda_ms(torch, lambda: ops.lsh_hash(x, p.a, p.b, p.w)):.4f} ms, "
-        f"bound {bound_ms(4 * (x.shape[0] * (d + f) + d * f), 2 * x.shape[0] * d * f)[0]:.4f} ms")
+    nx = x.shape[0]
+    k_ms = cuda_ms(torch, lambda: ops.lsh_hash(x, p.a, p.b, p.w))
+    p_ms = cuda_ms(torch, lambda: ref.lsh_hash(x, p.a, p.b, p.w), iters=5)
+    b_ms = bound_ms(4 * (nx * (d + f) + d * f), 2 * nx * d * f)[0]
+    log(f"lsh_hash[corpus] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms (the main path hashes the corpus by project_raw and "
+        "quantize, not by this kernel)")
 
     # hamming_to_buckets: (Q, L, B) = (64, 2, 2^20)
     qcodes = lsh.hash_point(p, qs, cfg.n_tables)
@@ -183,8 +198,18 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
     got = ops.hamming_to_buckets(bc, qcodes, nb)
     want = ref.hamming_to_buckets(bc, qcodes, nb)
     if not torch.equal(got, want):
-        raise AssertionError("hamming_to_buckets differs from its plain version")
+        raise AssertionError("hamming_to_buckets differs from its plain "
+                             "version")
     nl, nbk, k = bc.shape
+    # torch.cdist(p=0) counts the same mismatches, as (L, B, Q) and unmasked
+    qt = qcodes.transpose(0, 1).float().contiguous()
+    bcf = bc.float()
+    lib = torch.cdist(bcf, qt, p=0)
+    live = torch.arange(nbk, device=dev)[None, :] < nb[:, None]
+    if not torch.equal(lib.permute(2, 0, 1)[:, live], want[:, live].float()):
+        raise AssertionError("torch.cdist(p=0) differs from the Hamming "
+                             "counts on live buckets")
+    del lib
     res["hamming_to_buckets"] = dict(
         max_abs_err=float((got - want).abs().max()),
         ms=cuda_ms(torch, lambda: ops.hamming_to_buckets(bc, qcodes, nb)),
@@ -194,8 +219,8 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
         bound=bound_ms(4 * (int(nb.sum()) * k + NQ * nl * k + nl
                             + NQ * nl * nbk),
                        2 * NQ * int(nb.sum()) * k),
-        library_ms=None)
-    del got, want
+        library_ms=cuda_ms(torch, lambda: torch.cdist(bcf, qt, p=0), iters=5))
+    del got, want, bcf
     log(f"hamming_to_buckets{tuple(qcodes.shape[:2]) + (nbk,)}: exact")
 
     # l2dist_rows: one slab's shape (128 lanes x 128) and the central pass
@@ -225,7 +250,6 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
     got = ops.l2dist(x, qs)
     want = ref.l2dist(x, qs)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    nx = x.shape[0]
     res["l2dist"] = dict(
         max_abs_err=float((got - want).abs().max()),
         ms=cuda_ms(torch, lambda: ops.l2dist(x, qs)),
@@ -822,6 +846,8 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
     qluts = pqmod.quantize_lut(luts).q8.contiguous()
     tsq = (taus * taus)[:, None]
     nc, nq = codes.shape[0], luts.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_hz = max_sm_clock_hz()
 
     def bag(lut_stack):
         """embedding_bag computing the same (transposed) scan: row n sums
@@ -834,12 +860,9 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
     for name, fn, plain_fn, lut_stack, out_b in (
             ("adc_batch", ops.adc_batch, ref.adc_batch, luts, 4),
             ("adc_batch_q8", ops.adc_batch_q8, ref.adc_batch_q8, qluts, 4)):
+        # both sum over m in order: float sums bit-equal, int32 exact
         got, want = fn(codes, lut_stack), plain_fn(codes, lut_stack)
-        if name == "adc_batch":
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-            check_decisions(torch, f"{name}{tuple(codes.shape)} x {nq}", got,
-                            want, tsq)
-        elif not torch.equal(got, want):
+        if not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version")
         lib = bag(lut_stack)
         lib_err = float((lib().T - want.float()).abs().max())
@@ -853,6 +876,13 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
                            * lut_stack.element_size() + nq * nc * out_b,
                            nq * nc * m),
             library_ms=cuda_ms(torch, lib, iters=5))
+        # the kernel's other ceiling: one shared-memory word per float
+        # lookup, per four uint8 ones, at 32 words a clock on each SM
+        words = nq * nc * m // (4 if lut_stack.dtype == torch.uint8 else 1)
+        log(f"{name}: kernel {res[name]['ms']:.4f} ms, byte bound "
+            f"{res[name]['bound'][0]:.4f} ms, shared-word ceiling "
+            f"{words / (sms * 32 * sm_hz) * 1e3:.4f} ms ({words} words, "
+            f"{sms} SMs x 32 words/clock at {sm_hz / 1e6:.0f} MHz)")
         del got, want
 
     # the rows kernels at the central pass they serve on the main path:
@@ -897,8 +927,9 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
     ids = torch.randint(0, nc, (128, 128), generator=g, device=dev,
                         dtype=torch.int32)
     lane_q = (torch.arange(128, device=dev) * nq // 128).to(torch.int32)
-    torch.testing.assert_close(ops.adc_batch(pk, pl), ref.adc_batch(pc, pl),
-                               rtol=1e-5, atol=1e-5)
+    if not torch.equal(ops.adc_batch(pk, pl), ref.adc_batch(pc, pl)):
+        raise AssertionError("packed 4-bit adc_batch differs from the plain "
+                             "byte-code version")
     torch.testing.assert_close(ops.adc_rows(pk, ids, pl, lane_q),
                                ref.adc_rows(pc, ids, pl, lane_q), rtol=1e-5,
                                atol=1e-5)

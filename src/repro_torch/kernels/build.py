@@ -33,8 +33,8 @@ SIGNATURES = {
     "l2dist_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "adc_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "adc_rows_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "adc_batch_f32": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
-    "adc_batch_u8": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _I, _P],
+    "adc_batch_f32": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
+    "adc_batch_u8": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
 }
 

@@ -227,13 +227,54 @@ def adc_rows_q8(codes: torch.Tensor, ids: torch.Tensor, qluts: torch.Tensor,
                      codes, ids, qluts, lane_q)
 
 
+# adc_batch's blocks: 512 threads, at most 227 KB of shared memory
+_BATCH_WARPS, _SMEM_LIMIT = 16, 232448
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def adc_batch_smem(q8: bool, m: int, kc: int, cb: int, lg: int,
+                   lrb: int) -> int:
+    """Shared memory of one ``adc_batch`` block (``batch_smem`` in
+    ``csrc/adc.cu``): the query tile's LUTs, G = 2^lg words per (m, c);
+    two code tiles of 2^lrb rows, each row padded to 16 bytes; the
+    (queries × rows) output tile."""
+    g, rb, cbs = 1 << lg, 1 << lrb, _align16(cb)
+    out = rb * (g + 1) * 16 if q8 else g * (rb + 32 // g) * 4
+    return _align16(m * kc * 4 * g) + 2 * _align16(rb * cbs) + out
+
+
+def adc_batch_plan(nq: int, m: int, kc: int, cb: int,
+                   q8: bool) -> tuple[int, int]:
+    """``adc_batch``'s tiles ``(lg, lrb)``: the widest query tile that fits
+    (G = 2^lg LUT words per (m, c), G <= 16 and no wider than the Q queries
+    need; a word holds one float query or four uint8 ones), then the longest
+    row tile, 2^lrb <= 512 rows and at least the 16 · 32/G rows the block's
+    lanes hold at once."""
+    qpw = 4 if q8 else 1
+    top = 0
+    while top < 4 and qpw << top < nq:
+        top += 1
+    for lg in range(top, -1, -1):
+        for lrb in range(9, -1, -1):
+            if 1 << lrb < _BATCH_WARPS * (32 >> lg):
+                break
+            if adc_batch_smem(q8, m, kc, cb, lg, lrb) <= _SMEM_LIMIT:
+                return lg, lrb
+    raise ValueError(f"no adc_batch tile fits shared memory at M={m}, "
+                     f"Kc={kc}, {cb}-byte codes")
+
+
 def _adc_batch(name: str, fn: str, lut_dtype, out_dtype, codes, luts):
     m, kc, cb, packed, align = _adc_layout(codes, luts, lut_dtype)
     n, nq = codes.shape[0], luts.shape[0]
     out = torch.empty((nq, n), dtype=out_dtype, device=codes.device)
     if n and nq:
+        lg, lrb = adc_batch_plan(nq, m, kc, cb, lut_dtype == torch.uint8)
         _launch(name, fn, codes.data_ptr(), luts.data_ptr(), out.data_ptr(),
-                n, nq, cb, m, kc, packed, align)
+                n, nq, cb, m, kc, packed, lg, lrb, align)
     return out
 
 

@@ -95,6 +95,30 @@ def test_packed_and_byte_codes_give_identical_sums():
                        ops.adc_batch_q8(tc, torch.from_numpy(qluts)))
 
 
+@pytest.mark.parametrize("q8", [False, True])
+def test_adc_batch_tiles_fit_and_cover_every_query_once(q8):
+    """Over a grid of shapes the kernel takes, the tile plan fits a block's
+    227 KB, its row tile holds every lane's rows, and the query tiles
+    (one grid row each) cover each query exactly once."""
+    for nq in (1, 2, 3, 4, 5, 15, 16, 17, 63, 64, 65, 100, 1000):
+        for m, kc, cb in ((32, 64, 32), (30, 16, 30), (8, 16, 4),
+                          (64, 256, 64), (128, 16, 64), (1, 1, 1),
+                          (4, 256, 4), (16, 16, 8)):
+            lg, lrb = ops.adc_batch_plan(nq, m, kc, cb, q8)
+            assert ops.adc_batch_smem(q8, m, kc, cb, lg, lrb) <= 232448
+            assert 0 <= lg <= 4 and 16 * (32 >> lg) <= 1 << lrb <= 512
+            qt = (4 if q8 else 1) << lg
+            covered = np.zeros(nq, dtype=int)
+            for t in range(-(-nq // qt)):
+                covered[t * qt:min(nq, (t + 1) * qt)] += 1
+            assert (covered == 1).all()
+            # no wider than the queries need, up to 16 words
+            assert lg == 4 or qt < 2 * nq or qt == (4 if q8 else 1)
+    # the scan's shape takes the widest tiles: 16 float or 64 uint8 queries
+    assert ops.adc_batch_plan(64, 32, 64, 32, False) == (4, 9)
+    assert ops.adc_batch_plan(64, 32, 64, 32, True) == (4, 8)
+
+
 def test_cpu_adc_wrappers_take_plain_versions_and_count_nothing():
     ops.reset_launches()
     codes = torch.zeros((6, 4), dtype=torch.uint8)
@@ -135,13 +159,19 @@ def _card_inputs(g, n, m, kc, q, packed):
     (1 << 20, 32, 64, 64, False),    # the scan baseline's shape
     (10_001, 30, 16, 5, False),      # 30-byte rows: byte loads
     (4099, 8, 16, 17, True),         # packed 4-bit codes
-    (777, 64, 256, 3, False)])       # 64 KB f32 LUT: above 48 KB
+    (777, 64, 256, 3, False),        # 64 KB f32 LUT: above 48 KB
+    (5000, 32, 64, 1, False),        # Q = 1: one query per tile
+    (5000, 32, 64, 16, False),       # one full float tile
+    (5000, 32, 64, 17, False),       # a second tile of one query
+    (1, 32, 64, 64, False),          # N = 1
+    (100_003, 32, 64, 64, False),    # N not a multiple of a row tile
+    (1 << 16, 64, 16, 64, True)])    # packed 4-bit codes at Q = 64
 def test_cuda_adc_batch_matches_plain(n, m, kc, q, packed):
+    """Float sums run over m in the plain version's order: bit-equal."""
     g = _card()
     codes, luts, qluts = _card_inputs(g, n, m, kc, q, packed)
-    torch.testing.assert_close(ops.adc_batch(codes, luts),
-                               ref.adc_batch(codes, luts), rtol=1e-5,
-                               atol=1e-5)
+    assert torch.equal(ops.adc_batch(codes, luts),
+                       ref.adc_batch(codes, luts))
     assert torch.equal(ops.adc_batch_q8(codes, qluts),
                        ref.adc_batch_q8(codes, qluts))
 
