@@ -12,13 +12,18 @@ Phases, in order; each raises on failure:
 3. Each kernel wrapper against its plain PyTorch version at the main path's
    shapes, with the stated tolerances; CUDA-event times of the kernel, the
    plain version and (for ``l2dist`` and ``hamming_to_buckets``)
-   ``torch.cdist``, beside the bound.
+   ``torch.cdist``, beside the bound. ``l2dist`` runs its tiled kernel at
+   1,000,000 and 1,016,384 rows x 64 queries, each held with
+   ``torch.equal`` against its general kernel, whose time it prints beside
+   the FP32-issue ceiling.
 4. The main path at SIFT1M scale (N = 1,000,000, d = 128): ``build`` at
    capacity 2^20, 64 paper-protocol queries through
    ``estimate_batch_stats``, an in-capacity ``update`` of 16,384 points, an
    ``update`` past capacity (growth to 2^21), an estimate after each, all
-   held against ``true_cardinality``. Kernel launch counts are zeroed just
-   before and read just after.
+   held against ``true_cardinality`` (each call's count sum and max, and a
+   digest of the query workload's tau grid, are printed). Kernel launch
+   counts are zeroed just before and read just after; every ``l2dist``
+   launch must have taken the tiled kernel.
 5. The fused slab kernel ``slab_qualify`` against its plain version on the
    grown state (128 lanes x 128 slots, B = 2^21): sample counts and sums
    equal, and equal to the slab path's composition before the fusion (the
@@ -56,6 +61,7 @@ package beside it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -77,6 +83,7 @@ SERVE_KW = dict(n_tables=1, n_funcs=12, ring_budget=1024, central_budget=512,
                 pq_exact_central=False, pq_int8_lut=True, **PQ_KW)
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
 FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
+FP32_LANES_PER_SM = 128        # Hopper: 4 schedulers x 32 FP32 lanes
 MARGIN = 1e-5
 REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "hamming_to_buckets": "src/repro/kernels/hamming.py:32",
@@ -151,17 +158,65 @@ def max_sm_clock_hz() -> float:
     return float(smi.stdout.split()[0]) * 1e6
 
 
+def clocks_under_load(torch, fn, seconds: float = 2.0):
+    """(SM MHz, board W) samples of ``nvidia-smi`` every 100 ms while ``fn``
+    runs back to back for ``seconds`` (the first second's samples dropped:
+    the query starts before the load settles)."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 1.0 + seconds:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out = smi.communicate(timeout=60)[0]
+    rows = [tuple(map(float, ln.split(","))) for ln in out.splitlines()
+            if ln.count(",") == 1]
+    return rows[10:]
+
+
+def sass_mix(lib_path, kernel: str):
+    """FADD, FFMA and all instructions in the span from the first to the
+    last FADD/FFMA of ``kernel``'s SASS in the built library (the unrolled
+    k loop), from ``cuobjdump``; None where the toolkit lacks it."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120).stdout
+    for body in sass.split("Function : ")[1:]:
+        if f"{kernel}E" not in body.split("\n", 1)[0]:
+            continue
+        ops = []
+        for ln in body.splitlines():
+            # "/*0a40*/   @P0 FADD R1, R2, -R3 ;   /* 0x... */"
+            words = ln.split("*/", 1)[1].split() if ln.strip().startswith(
+                "/*") else []
+            if words:
+                op = words[1] if words[0].startswith("@") else words[0]
+                ops.append(op.split(".")[0])
+        fp = [i for i, o in enumerate(ops) if o in ("FADD", "FFMA")]
+        span = ops[fp[0]:fp[-1] + 1]
+        return span.count("FADD"), span.count("FFMA"), len(span)
+    return None
+
+
 def near_integer(torch, x, a, b, w):
     v = (x.double() @ a.double() + (b * w).double()) / w.double()
     return (v - torch.round(v)).abs() < MARGIN
 
 
-def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
+def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
     """Every kernel against its plain version at the main path's shapes."""
     from repro_torch.core import lsh
     from repro_torch.kernels import ops, ref
     res = {}
     p = index.params
+    x = corpus[:N]
     dev = x.device
 
     # lsh_hash: the query hash (64 x 128 -> 20) and the 1M corpus
@@ -246,17 +301,61 @@ def phase_kernels(torch, x, qs, taus, index, cfg) -> dict:
                                2 * r * c * d),
                 library_ms=None)
 
-    # l2dist: true_cardinality / query-workload shape, 1M x 64
-    got = ops.l2dist(x, qs)
-    want = ref.l2dist(x, qs)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    res["l2dist"] = dict(
-        max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(torch, lambda: ops.l2dist(x, qs)),
-        plain_ms=cuda_ms(torch, lambda: ref.l2dist(x, qs), iters=3),
-        bound=bound_ms(4 * (nx * d + NQ * d + nx * NQ), 2 * nx * NQ * d),
-        library_ms=cuda_ms(torch, lambda: torch.cdist(x, qs) ** 2))
-    del got, want
+    # l2dist: true_cardinality / query-workload shapes, 1M and the ragged
+    # 1,016,384 (not a multiple of the 128-row tile) x 64; the tiled kernel
+    # is bit-equal to the general one (the same fmaf order)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_hz = max_sm_clock_hz()
+    for nl in (N, N + N_INGEST):
+        xl = corpus[:nl]
+        if ops.l2dist_plan(nl, NQ, d, xl.data_ptr(), qs.data_ptr()) is None:
+            raise AssertionError(f"l2dist at {nl} x {NQ} x {d} does not take "
+                                 "the tiled kernel")
+        got = ops.l2dist(xl, qs)
+        if not torch.equal(got, ops.l2dist_general(xl, qs)):
+            raise AssertionError(f"l2dist at {nl} rows: the tiled kernel "
+                                 "differs from the general one")
+        want = ref.l2dist(xl, qs)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        nbytes, flops = 4 * (nl * d + NQ * d + nl * NQ), 2 * nl * NQ * d
+        r = dict(
+            max_abs_err=float((got - want).abs().max()),
+            ms=cuda_ms(torch, lambda: ops.l2dist(xl, qs)),
+            plain_ms=cuda_ms(torch, lambda: ref.l2dist(xl, qs), iters=3),
+            bound=bound_ms(nbytes, flops),
+            library_ms=cuda_ms(torch, lambda: torch.cdist(xl, qs) ** 2))
+        del got, want
+        general_ms = cuda_ms(torch, lambda: ops.l2dist_general(xl, qs))
+        # one FADD and one FFMA per (row, query, k), one warp instruction
+        # per scheduler a clock
+        ceiling = flops / (sms * FP32_LANES_PER_SM * sm_hz) * 1e3
+        log(f"l2dist[{nl} x {NQ} x {d}]: tiled kernel {r['ms']:.4f} ms "
+            f"(bit-equal to the general kernel, {general_ms:.4f} ms); plain "
+            f"{r['plain_ms']:.4f} ms, torch.cdist ** 2 "
+            f"{r['library_ms']:.4f} ms; bounds: bytes "
+            f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms, operations "
+            f"{flops / FP32_FLOP_S * 1e3:.4f} ms; FP32-issue ceiling "
+            f"{ceiling:.4f} ms ({sms} SMs x {FP32_LANES_PER_SM} lanes at "
+            f"{sm_hz / 1e6:.0f} MHz); max_abs_err {r['max_abs_err']}")
+        if nl == N:
+            res["l2dist"] = r
+    # what the FP32-issue ceiling assumes: the clock under this load, and
+    # an instruction stream of FADD and FFMA alone
+    rows = sorted(clocks_under_load(torch, lambda: ops.l2dist(x, qs)))
+    if rows:
+        mhz = rows[len(rows) // 2][0]
+        at_mhz = 2 * N * NQ * d / (sms * FP32_LANES_PER_SM * mhz * 1e6)
+        log(f"l2dist under load ({len(rows)} samples): SM clock "
+            f"{rows[0][0]:.0f}-{rows[-1][0]:.0f} MHz, median {mhz:.0f}; "
+            f"board power {min(w for _, w in rows):.2f}-"
+            f"{max(w for _, w in rows):.2f} W; FP32-issue ceiling at the "
+            f"median clock {at_mhz * 1e3:.4f} ms")
+    from repro_torch.kernels import build
+    mix = sass_mix(build.load().path, "l2dist_tiled_kernel")
+    log("l2dist_tiled_kernel k loop (SASS): " + (
+        "not measured (no cuobjdump)" if mix is None else
+        f"{mix[0]} FADD + {mix[1]} FFMA of {mix[2]} instructions = "
+        f"{(mix[0] + mix[1]) / mix[2]:.4f}"))
     for name, r in res.items():
         log(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
@@ -298,12 +397,13 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     expect_live(state, N)
     log(f"build: {t_build:.3f} s (N {N}, capacity {CAPACITY}, buckets "
         f"{state.index.n_buckets.tolist()})")
-    (qs, taus_grid, _), t_wl = timed(
+    (qs, taus_grid, cards), t_wl = timed(
         torch, lambda: vectors.paper_query_workload(g, corpus[:N], NQ))
     taus = taus_grid[torch.arange(NQ, device=dev),
                      torch.arange(NQ, device=dev) % taus_grid.shape[1]]
     log(f"query workload: {t_wl:.3f} s, {taus_grid.shape[1]} targets, "
-        "one per query round robin")
+        f"one per query round robin; tau grid digest {digest(taus_grid)}, "
+        f"cardinalities digest {digest(cards)}")
     rks = E.draw_round_keys(g, NQ, cfg.n_tables, dev)
 
     for rnd in ("first", "second"):
@@ -315,7 +415,8 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
             raise AssertionError("estimate_batch_stats is not deterministic")
         first = out
     est, probed_k, nvis = first
-    truth = E.true_cardinality(state.x, qs, taus, n_valid=N)
+    truth = truth_line(torch, "@ N", E.true_cardinality(state.x, qs, taus,
+                                                          n_valid=N))
     summarize(torch, "estimate @ N", est, truth)
     log(f"  probed_k mean {float(probed_k.float().mean()):.3f}, nvisited "
         f"mean {float(nvis.float().mean()):.1f}")
@@ -329,7 +430,8 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
         f"{N_INGEST / t_up:.1f} points/s")
     est, t_est = timed(torch, lambda: E.estimate_batch(
         state, qs, taus, cfg, generator=g))
-    truth = E.true_cardinality(state.x, qs, taus, n_valid=N + N_INGEST)
+    truth = truth_line(torch, "@ N+ingest", E.true_cardinality(
+        state.x, qs, taus, n_valid=N + N_INGEST))
     log(f"estimate_batch after ingest: {t_est * 1e3:.3f} ms")
     summarize(torch, "estimate @ N+ingest", est, truth)
 
@@ -341,7 +443,8 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
         f"{CAPACITY} -> {state.capacity}")
     est, t_est = timed(torch, lambda: E.estimate_batch(
         state, qs, taus, cfg, generator=g))
-    truth = E.true_cardinality(state.x, qs, taus, n_valid=n_all)
+    truth = truth_line(torch, "@ grown", E.true_cardinality(
+        state.x, qs, taus, n_valid=n_all))
     log(f"estimate_batch after growth: {t_est * 1e3:.3f} ms")
     summarize(torch, "estimate @ grown", est, truth)
     counts = dict(ops.LAUNCHES)
@@ -353,7 +456,29 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     missing = [k for k in EXACT_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    all_tiled(counts, "exact main path")
     return counts, state, qs, taus
+
+
+def digest(t) -> str:
+    """A short digest of a tensor's bytes, for comparing logs."""
+    raw = t.contiguous().cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
+def truth_line(torch, tag, truth):
+    """Log the sum and max of a ``true_cardinality`` call's counts."""
+    log(f"true_cardinality {tag}: sum {int(truth.sum())}, max "
+        f"{int(truth.max())}, digest {digest(truth)}")
+    return truth
+
+
+def all_tiled(counts, tag):
+    """Every ``l2dist`` launch in ``counts`` took the tiled kernel."""
+    if counts["l2dist_general"]:
+        raise AssertionError(f"{tag}: {counts['l2dist_general']} of "
+                             f"{counts['l2dist']} l2dist launches took the "
+                             "general kernel")
 
 
 def exact_profile_runs(torch, state, qs, taus, cfg, seed):
@@ -367,7 +492,8 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
 
 
 KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "l2dist_kernel",
-                "l2dist_rows_kernel", "adc_rows_kernel", "adc_batch_kernel",
+                "l2dist_tiled_kernel", "l2dist_rows_kernel", "adc_rows_kernel",
+                "adc_batch_kernel",
                 "slab_qualify_kernel")
 LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
 
@@ -729,6 +855,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
         if missing:
             raise AssertionError(f"kernels not launched on the PQ path "
                                  f"({tag}): {missing}")
+        all_tiled(launches[tag], f"PQ path ({tag})")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -743,7 +870,8 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
         f"{float(r2.median()):.4f}, mean {float(r2.mean()):.4f}; tau^2 of the "
         f"{NQ} queries min {float(t2[0]):.4f}, median "
         f"{float(t2[NQ // 2]):.4f}, max {float(t2[-1]):.4f}")
-    truth = E.true_cardinality(state.x, qs, taus, n_valid=N)
+    truth = truth_line(torch, "@ N (PQ path)", E.true_cardinality(
+        state.x, qs, taus, n_valid=N))
     rks = E.draw_round_keys(g, NQ, cfg.n_tables, dev)
     for rnd in ("first", "second"):
         out, t_est = timed(torch, lambda: E.estimate_batch_stats(
@@ -772,8 +900,9 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
         est, t_est = timed(torch, lambda: E.estimate_batch(
             state, qs, taus, cfg, generator=g))
         log(f"pq estimate_batch after the update: {t_est * 1e3:.3f} ms")
-        summarize(torch, f"pq estimate @ {n_live}", est,
-                  E.true_cardinality(state.x, qs, taus, n_valid=n_live))
+        summarize(torch, f"pq estimate @ {n_live}", est, truth_line(
+            torch, f"@ {n_live} (PQ path)",
+            E.true_cardinality(state.x, qs, taus, n_valid=n_live)))
     if state.capacity != 2 * CAPACITY:
         raise AssertionError("the growth update did not double capacity")
     read_launches("prober_cfg", ("slab_qualify", "l2dist_rows", "lsh_hash",
@@ -993,7 +1122,7 @@ def main(argv=None) -> int:
                   torch.arange(NQ, device=dev) % taus0.shape[1]]
     x_pad = torch.nn.functional.pad(x, (0, 0, 0, CAPACITY - N))
     index = lsh.build_index(x_pad, cfg, g, n_valid=N)
-    res = phase_kernels(torch, x, qs0, taus0, index, cfg)
+    res = phase_kernels(torch, corpus, qs0, taus0, index, cfg)
     del index, x_pad
     torch.cuda.empty_cache()
     counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)

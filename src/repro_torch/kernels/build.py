@@ -29,7 +29,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "lsh_hash_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "hamming_to_buckets_i32": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
-    "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _P],
+    "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P],
+    "l2dist_general_f32": [_P, _P, _P, _I64, _I, _I, _P],
     "l2dist_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "adc_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "adc_rows_u8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -15,8 +15,11 @@ import torch
 
 from repro_torch.kernels import ref
 
+# launches per wrapper; "l2dist" counts both of its kernels, and
+# "l2dist_general" the general one alone
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
-                            "l2dist": 0, "l2dist_rows": 0, "adc_rows": 0,
+                            "l2dist": 0, "l2dist_general": 0,
+                            "l2dist_rows": 0, "adc_rows": 0,
                             "adc_rows_q8": 0, "adc_batch": 0,
                             "adc_batch_q8": 0, "slab_qualify": 0}
 
@@ -24,6 +27,10 @@ LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# a block's shared memory on the H100: 227 KB
+_SMEM_LIMIT = 232448
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -118,20 +125,83 @@ def hamming(bucket_codes: torch.Tensor, qcode: torch.Tensor) -> torch.Tensor:
                               qcode[None, None].contiguous(), nb)[0, 0]
 
 
-def l2dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """x (N, d), q (Q, d) float32 → (N, Q) squared distances Σ(x−q)²."""
-    if _on_cpu(x, q):
-        return ref.l2dist(x, q)
+# l2dist's tiled kernel (``l2dist_f32`` in csrc/l2dist.cu): tiles of 128
+# rows and 64 queries, x staged in chunks of 64 floats of k (rows padded to
+# 68 floats) through a ring of 2 stages
+_L2_ROWS, _L2_QT, _L2_KC, _L2_STAGES = 128, 64, 64, 2
+
+
+class L2Plan(NamedTuple):
+    """How ``l2dist_f32`` covers an (N, Q) output."""
+    row_tiles: int      # 128-row tiles of x
+    q_tiles: int        # 64-query tiles of q, each resident in one block
+    smem: int           # dynamic shared memory of one block, bytes
+
+
+def l2dist_smem(d: int) -> int:
+    """Shared memory of one tiled ``l2dist`` block (``tiled_smem`` in
+    ``csrc/l2dist.cu``): the query tile, transposed, with d padded to a
+    multiple of 64, and the ring of staged row chunks."""
+    kch = -(-d // _L2_KC)
+    return 4 * (kch * _L2_KC * _L2_QT + _L2_STAGES * _L2_ROWS * (_L2_KC + 4))
+
+
+def l2dist_plan(n: int, nq: int, d: int, x_ptr: int,
+                q_ptr: int) -> L2Plan | None:
+    """The tiled kernel's plan for x (N, d) and q (Q, d) at these
+    addresses, or None where the shape goes to the general kernel. The
+    tiled kernel reads rows as 16-byte pieces, so it takes d % 4 == 0 and
+    16-byte aligned x and q, and a query tile that fits a block's shared
+    memory; it masks ragged N and Q itself."""
+    smem = l2dist_smem(d)
+    if (d % 4 or x_ptr % 16 or q_ptr % 16 or smem > _SMEM_LIMIT
+            or -(-nq // _L2_QT) > 65535):
+        return None
+    return L2Plan(-(-n // _L2_ROWS), -(-nq // _L2_QT), smem)
+
+
+def _l2dist_args(x: torch.Tensor, q: torch.Tensor) -> tuple[int, int, int]:
     _check(x, "x", torch.float32, 2)
     _check(q, "q", torch.float32, 2)
-    n, d = x.shape
-    nq = q.shape[0]
-    if q.shape[1] != d:
+    if q.shape[1] != x.shape[1]:
         raise ValueError(f"shapes x{tuple(x.shape)} q{tuple(q.shape)}")
+    return x.shape[0], q.shape[0], x.shape[1]
+
+
+def _l2dist_general(x, q, out, n, nq, d) -> None:
+    _launch("l2dist", "l2dist_general_f32", x.data_ptr(), q.data_ptr(),
+            out.data_ptr(), n, nq, d)
+    LAUNCHES["l2dist_general"] += 1
+
+
+def l2dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """x (N, d), q (Q, d) float32 → (N, Q) squared distances Σ(x−q)²,
+    through the tiled kernel where :func:`l2dist_plan` takes the shape and
+    the general one elsewhere; the two are bit-equal."""
+    if _on_cpu(x, q):
+        return ref.l2dist(x, q)
+    n, nq, d = _l2dist_args(x, q)
     out = torch.empty((n, nq), dtype=torch.float32, device=x.device)
     if n and nq:
-        _launch("l2dist", "l2dist_f32", x.data_ptr(), q.data_ptr(),
-                out.data_ptr(), n, nq, d)
+        plan = l2dist_plan(n, nq, d, x.data_ptr(), q.data_ptr())
+        if plan is None:
+            _l2dist_general(x, q, out, n, nq, d)
+        else:
+            _launch("l2dist", "l2dist_f32", x.data_ptr(), q.data_ptr(),
+                    out.data_ptr(), n, nq, d, *plan)
+    return out
+
+
+def l2dist_general(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """:func:`l2dist` through the general kernel at any shape: what
+    ``l2dist`` runs where the plan declines the tiled kernel, and what the
+    card's checks hold the tiled kernel against."""
+    if _on_cpu(x, q):
+        return ref.l2dist(x, q)
+    n, nq, d = _l2dist_args(x, q)
+    out = torch.empty((n, nq), dtype=torch.float32, device=x.device)
+    if n and nq:
+        _l2dist_general(x, q, out, n, nq, d)
     return out
 
 
@@ -227,8 +297,8 @@ def adc_rows_q8(codes: torch.Tensor, ids: torch.Tensor, qluts: torch.Tensor,
                      codes, ids, qluts, lane_q)
 
 
-# adc_batch's blocks: 512 threads, at most 227 KB of shared memory
-_BATCH_WARPS, _SMEM_LIMIT = 16, 232448
+# adc_batch's blocks: 512 threads
+_BATCH_WARPS = 16
 
 
 def _align16(nbytes: int) -> int:

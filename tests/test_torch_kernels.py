@@ -97,10 +97,33 @@ def test_l2dist_rows_matches_difference_form():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("n,nq,d,x_off,q_off,tiled", [
+    (1000, 64, 128, 0, 0, True),
+    (70_001, 130, 96, 0, 0, True),      # ragged N, two and a bit query tiles
+    (5, 1, 576, 0, 0, True),            # the widest d whose query tile fits
+    (5, 1, 580, 0, 0, False),           # ... and the next multiple of 4
+    (10, 64, 1024, 0, 0, False),        # a d far too wide for the tile
+    (1000, 3, 30, 0, 0, False),         # d % 4 != 0
+    (1000, 64, 128, 1, 0, False),       # x 4 bytes off a 16-byte boundary
+    (1000, 64, 128, 0, 1, False),       # q likewise
+])
+def test_l2dist_plan_routes_by_shape_and_alignment(n, nq, d, x_off, q_off,
+                                                   tiled):
+    x = torch.empty(n * d + x_off)[x_off:].view(n, d)
+    q = torch.empty(nq * d + q_off)[q_off:].view(nq, d)
+    plan = ops.l2dist_plan(n, nq, d, x.data_ptr(), q.data_ptr())
+    assert (plan is not None) == tiled
+    if tiled:
+        assert plan == ops.L2Plan(-(-n // 128), -(-nq // 64),
+                                  ops.l2dist_smem(d))
+        assert plan.smem <= 232448
+
+
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
     ops.reset_launches()
     x = torch.randn(10, 8)
     ops.l2dist(x, x[:2])
+    assert torch.equal(ops.l2dist_general(x, x[:2]), ref.l2dist(x, x[:2]))
     ops.l2dist_rows(x, torch.zeros((2, 3), dtype=torch.int32), x[:2])
     ops.lsh_hash(x, torch.randn(8, 4), torch.rand(4), torch.ones(4))
     ops.hamming(torch.zeros((5, 3), dtype=torch.int32),
@@ -165,6 +188,30 @@ def test_cuda_l2dist_matches_plain(n, q, d):
     qq = torch.randn(q, d, device="cuda", generator=g)
     torch.testing.assert_close(ops.l2dist(x, qq), ref.l2dist(x, qq),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q,d,x_off", [(70_001, 64, 128, 0),
+                                         (4_096, 130, 128, 0),
+                                         (10_000, 1, 128, 0),
+                                         (20_000, 64, 96, 0),
+                                         (5_000, 64, 128, 1)])
+def test_cuda_l2dist_tiled_and_general_agree(n, q, d, x_off):
+    """Shapes at the tiled kernel's edges (ragged N, ragged Q, Q = 1,
+    d = 96) take it and are bit-equal to the general kernel; a misaligned
+    x takes the general one."""
+    g = _card()
+    x = torch.randn(n * d + x_off, device="cuda",
+                    generator=g)[x_off:].view(n, d)
+    qq = torch.randn(q, d, device="cuda", generator=g)
+    tiled = ops.l2dist_plan(n, q, d, x.data_ptr(), qq.data_ptr()) is not None
+    assert tiled == (x_off == 0)
+    ops.reset_launches()
+    got = ops.l2dist(x, qq)
+    assert ops.LAUNCHES["l2dist"] == 1
+    assert ops.LAUNCHES["l2dist_general"] == int(not tiled)
+    torch.testing.assert_close(got, ref.l2dist(x, qq), rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, ops.l2dist_general(x, qq))
 
 
 @pytest.mark.cuda
