@@ -15,22 +15,33 @@ Phases, in order; each raises on failure:
    ``torch.cdist``, beside the bound. ``l2dist`` runs its tiled kernel at
    1,000,000 and 1,016,384 rows x 64 queries, each held with
    ``torch.equal`` against its general kernel, whose time it prints beside
-   the FP32-issue ceiling.
+   the FP32-issue ceiling. ``query_lanes`` (the query hash fused into the
+   Hamming scan) at (64, 2, 2^20), ``torch.equal`` to ``lsh_hash`` plus
+   ``hamming_to_buckets``, timed beside them.
 4. The main path at SIFT1M scale (N = 1,000,000, d = 128): ``build`` at
    capacity 2^20, 64 paper-protocol queries through
    ``estimate_batch_stats``, an in-capacity ``update`` of 16,384 points, an
    ``update`` past capacity (growth to 2^21), an estimate after each, all
    held against ``true_cardinality`` (each call's count sum and max, and a
    digest of the query workload's tau grid, are printed). Kernel launch
-   counts are zeroed just before and read just after; every ``l2dist``
-   launch must have taken the tiled kernel.
+   counts are zeroed just before and read just after: every estimate
+   launches ``query_lanes`` and ``central_qualify`` once, every ``l2dist``
+   launch must have taken the tiled kernel, and none of the kernels those
+   two replaced (``lsh_hash``, ``hamming_to_buckets``, ``l2dist_rows``,
+   ``adc_rows[_q8]``) may launch. Then ``query_lanes`` again at 2^21, and
+   on an index of 2^21 bucket rows that are all live; each time also with
+   other counts of worker blocks, which must give the same results.
 5. The fused slab kernel ``slab_qualify`` against its plain version on the
    grown state (128 lanes x 128 slots, B = 2^21): sample counts and sums
    equal, and equal to the slab path's composition before the fusion (the
    torch candidate walk and the ``l2dist_rows`` kernel); CUDA-event and
-   profiler times, and the launches of one slab step either way.
+   profiler times, and the launches of one slab step either way. Then
+   ``central_qualify`` (Alg. 3's central count, one launch) against its
+   plain version and the composition it replaced (ring 0's cumsum row,
+   ``gather_ring_from_cum``, ``l2dist_rows``) at 128 lanes x 2048.
 6. Where the time goes: ``torch.profiler`` over one ``estimate_batch`` and
-   one ``update``.
+   one ``update`` (with ``copy_`` and ``searchsorted`` time, launch calls
+   and the call's peak device memory).
 7. Small-input agreement: the same index, queries and round keys through
    the CPU path (plain versions) and the GPU path (kernels).
 8. The PQ path at SIFT1M scale, launch counts zeroed just before and read
@@ -49,7 +60,9 @@ Phases, in order; each raises on failure:
    for ``adc_batch[_q8]``, beside the shared-memory word ceiling); then
    ``slab_qualify`` against its plain version on the PQ states: mixed
    routing and banded weights at 2^21, ``serve_cfg``'s uint8 slab (64 x
-   512) with byte and packed codes.
+   512) with byte and packed codes; ``central_qualify`` on the PQ states
+   (``prober_cfg``'s exact central, a banded ADC central, ``serve_cfg``'s
+   uint8 and float LUTs) against the composition it replaced.
 10. ``torch.profiler`` over one PQ ``estimate_batch`` of each config.
 11. Small-input agreement of the PQ path (packed 4-bit codes, float and
     uint8 LUTs) between the CPU and the GPU.
@@ -87,6 +100,8 @@ FP32_LANES_PER_SM = 128        # Hopper: 4 schedulers x 32 FP32 lanes
 MARGIN = 1e-5
 REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "hamming_to_buckets": "src/repro/kernels/hamming.py:32",
+            "query_lanes": "src/repro/kernels/lsh_hash.py:46, "
+                           "src/repro/kernels/hamming.py:32",
             "l2dist": "src/repro/kernels/l2dist.py:41",
             "l2dist_rows": "src/repro/kernels/l2dist.py:41",
             "adc_rows": "src/repro/kernels/adc.py:67",
@@ -94,14 +109,22 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "adc_rows_q8": "src/repro/kernels/adc.py:153",
             "adc_batch_q8": "src/repro/kernels/adc.py:200",
             "slab_qualify": "src/repro/kernels/l2dist.py:41, "
-                            "src/repro/kernels/adc.py:67"}
-EXACT_KERNELS = ("lsh_hash", "hamming_to_buckets", "l2dist", "l2dist_rows",
-                 "slab_qualify")
+                            "src/repro/kernels/adc.py:67",
+            "central_qualify": "src/repro/kernels/adc.py:153, "
+                               "src/repro/kernels/adc.py:67, "
+                               "src/repro/kernels/l2dist.py:41"}
+# the kernels every estimator path launches, and the ones they replaced
+# there (still built and held against their plain versions)
+PATH_KERNELS = ("query_lanes", "slab_qualify", "central_qualify")
+EXACT_KERNELS = PATH_KERNELS + ("l2dist",)
+REPLACED = ("lsh_hash", "hamming_to_buckets", "l2dist_rows", "adc_rows",
+            "adc_rows_q8")
 SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
-           "l2dist": "l2dist.cu", "l2dist_rows": "l2dist.cu",
-           "adc_rows": "adc.cu", "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
-           "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu"}
-
+           "query_lanes": "hamming.cu", "l2dist": "l2dist.cu",
+           "l2dist_rows": "l2dist.cu", "adc_rows": "adc.cu",
+           "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
+           "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu",
+           "central_qualify": "slab.cu"}
 
 def log(*a):
     print(*a, flush=True)
@@ -277,6 +300,7 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
         library_ms=cuda_ms(torch, lambda: torch.cdist(bcf, qt, p=0), iters=5))
     del got, want, bcf
     log(f"hamming_to_buckets{tuple(qcodes.shape[:2]) + (nbk,)}: exact")
+    res["query_lanes"] = phase_query_lanes(torch, index, qs, "2^20")
 
     # l2dist_rows: one slab's shape (128 lanes x 128) and the central pass
     # (128 lanes x 2048), lane i holding query i // L
@@ -300,6 +324,9 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
                 bound=bound_ms(4 * (r * c + r * c * d + r * d + r * c),
                                2 * r * c * d),
                 library_ms=None)
+            log(f"l2dist_rows{tuple(ids.shape) + (d,)}: kernel "
+                f"{kernel_device_us(torch, lambda: ops.l2dist_rows(x, ids, qs_l), 'l2dist_rows_kernel'):.2f}"
+                " us per launch on the device (profiler)")
 
     # l2dist: true_cardinality / query-workload shapes, 1M and the ragged
     # 1,016,384 (not a multiple of the 128-row tile) x 64; the tiled kernel
@@ -361,6 +388,107 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
             f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), library "
             f"{r['library_ms']}, max_abs_err {r['max_abs_err']}")
     return res
+
+
+def phase_query_lanes(torch, index, qs, tag) -> dict:
+    """``query_lanes`` over ``index``'s buckets at the queries' shape:
+    ``torch.equal`` to ``lsh_hash`` plus ``hamming_to_buckets`` (the two
+    launches it replaced on the main path), and against its plain version
+    (codes may differ only where a hash value lies within MARGIN of an
+    integer; distances equal on the kernel's codes); CUDA-event times beside
+    the two kernels' and ``hamming_to_buckets``' alone, and device times.
+    Returns the kernel's result entry."""
+    from repro_torch.kernels import ops, ref
+    p = index.params
+    bc, nb = index.bucket_codes, index.n_buckets
+    nl, nbk, k = bc.shape
+    nq, d = qs.shape
+    f = p.a.shape[1]
+    args = (qs, p.a, p.b, p.w, bc, nb)
+
+    def replaced():
+        codes = ops.lsh_hash(qs, p.a, p.b, p.w).reshape(nq, nl, k)
+        return codes, ops.hamming_to_buckets(bc, codes, nb)
+
+    qcodes, ham = ops.query_lanes(*args)
+    want = replaced()
+    if not (torch.equal(qcodes, want[0]) and torch.equal(ham, want[1])):
+        raise AssertionError(f"query_lanes[{tag}] differs from lsh_hash + "
+                             "hamming_to_buckets")
+    del want
+    pcodes, _ = ref.query_lanes(*args)
+    near = near_integer(torch, qs, p.a, p.b, p.w).reshape(qcodes.shape)
+    if ((qcodes != pcodes) & ~near).any() or not torch.equal(
+            ham, ref.hamming_to_buckets(bc, qcodes, nb)):
+        raise AssertionError(f"query_lanes[{tag}] differs from its plain "
+                             "version off the margin")
+    live = int(nb.sum())
+    res = dict(
+        max_abs_err=float((qcodes - pcodes).abs().max()),
+        ms=cuda_ms(torch, lambda: ops.query_lanes(*args)),
+        plain_ms=cuda_ms(torch, lambda: ref.query_lanes(*args), iters=5),
+        # queries, a, b, w, the live bucket rows, n_buckets; codes and
+        # distances out
+        bound=bound_ms(4 * (nq * d + d * f + 2 * f + live * k + nl
+                            + nq * nl * k + nq * nl * nbk),
+                       2 * nq * d * f + 2 * nq * live * k),
+        library_ms=None)
+    # other worker counts (blocks that scan the live tiles and hash): 4, 8
+    # and 32 per SM over the L tables beside the default 16, and one per
+    # tile (every live tile its own block and hash)
+    sms = torch.cuda.get_device_properties(qs.device).multi_processor_count
+    tiles = -(-nbk // 256)
+    grids = []
+    for per_sm in (4, 8, 32, None):
+        workers = tiles if per_sm is None else per_sm * sms // nl
+        got = ops.query_lanes(*args, workers=workers)
+        if not (torch.equal(got[0], qcodes) and torch.equal(got[1], ham)):
+            raise AssertionError(f"query_lanes[{tag}] with {workers} workers "
+                                 "a table differs from the default")
+        del got
+        grids.append((per_sm, workers, cuda_ms(
+            torch, lambda: ops.query_lanes(*args, workers=workers))))
+    del ham
+    both_ms = cuda_ms(torch, replaced)
+    ham_ms = cuda_ms(torch, lambda: ops.hamming_to_buckets(bc, qcodes, nb))
+    hash_ms = cuda_ms(torch, lambda: ops.lsh_hash(qs, p.a, p.b, p.w))
+    dev_us = kernel_device_us(torch, lambda: ops.query_lanes(*args),
+                              "query_lanes_kernel")
+    ham_us = kernel_device_us(torch, lambda: ops.hamming_to_buckets(
+        bc, qcodes, nb), "hamming_kernel")
+    log(f"query_lanes[{tag}, ({nq}, {nl}, {nbk}), K = {k}]: torch.equal to "
+        f"lsh_hash + hamming_to_buckets; {int((qcodes != pcodes).sum())} "
+        f"codes differ from the plain version, {int(near.sum())} hash "
+        f"values within {MARGIN} of an integer")
+    log(f"  wrapper {res['ms']:.4f} ms (CUDA events); the two it replaced "
+        f"{both_ms:.4f} ms (lsh_hash {hash_ms:.4f}, hamming_to_buckets "
+        f"{ham_ms:.4f}); against hamming_to_buckets alone "
+        f"{res['ms'] / ham_ms:.4f} ("
+        f"{'within' if res['ms'] <= 1.05 * ham_ms else 'NOT within'} 5%); "
+        f"device {dev_us:.2f} us per launch, hamming_kernel {ham_us:.2f} us; "
+        f"plain {res['plain_ms']:.4f} ms; bound {res['bound'][0]:.4f} ms "
+        f"({res['bound'][1]}); live bucket rows {live} of {nl * nbk}")
+    log(f"  workers (blocks that scan live tiles and hash; {tiles} tiles a "
+        f"table): 16 per SM (default, {16 * sms // nl} a table) "
+        f"{res['ms']:.4f} ms; " + ", ".join(
+            f"{'one per tile' if per_sm is None else f'{per_sm} per SM'} "
+            f"({workers} a table) {ms:.4f} ms ({ms / ham_ms:.4f} of "
+            "hamming_to_buckets)" for per_sm, workers, ms in grids)
+        + " (equal results)")
+    return res
+
+
+def every_row_live(torch, index):
+    """``index`` with every bucket row live, for ``phase_query_lanes``:
+    random codes in [-3, 3] over the whole (L, B, K) bucket axis and
+    ``n_buckets`` = B, so that no tile is padding and every cluster
+    hashes (the hash reads only the params, the scan the codes)."""
+    bc = index.bucket_codes
+    g = torch.Generator(device=bc.device).manual_seed(7)
+    return index._replace(
+        bucket_codes=torch.randint(-3, 4, bc.shape, generator=g,
+                                   device=bc.device, dtype=torch.int32),
+        n_buckets=torch.full_like(index.n_buckets, bc.shape[1]))
 
 
 def q_errors(torch, est, truth):
@@ -457,6 +585,10 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     all_tiled(counts, "exact main path")
+    none_replaced(counts, "exact main path")
+    log(f"per estimate: {counts['query_lanes'] / 4:g} query_lanes and "
+        f"{counts['central_qualify'] / 4:g} central_qualify launches (4 "
+        "estimates)")
     return counts, state, qs, taus
 
 
@@ -481,6 +613,14 @@ def all_tiled(counts, tag):
                              "general kernel")
 
 
+def none_replaced(counts, tag):
+    """No kernel that ``query_lanes`` or ``central_qualify`` replaced on
+    the estimator's path launched in ``counts``."""
+    ran = {k: counts[k] for k in REPLACED if counts[k]}
+    if ran:
+        raise AssertionError(f"{tag}: replaced kernels launched: {ran}")
+
+
 def exact_profile_runs(torch, state, qs, taus, cfg, seed):
     """One estimate_batch and one in-capacity update of the grown state."""
     from repro_torch.core import estimator as E
@@ -491,10 +631,10 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
             ("update", lambda: E.update(state, extra, cfg))]
 
 
-KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "l2dist_kernel",
-                "l2dist_tiled_kernel", "l2dist_rows_kernel", "adc_rows_kernel",
-                "adc_batch_kernel",
-                "slab_qualify_kernel")
+KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "query_lanes_kernel",
+                "l2dist_kernel", "l2dist_tiled_kernel", "l2dist_rows_kernel",
+                "adc_rows_kernel", "adc_batch_kernel", "slab_qualify_kernel",
+                "central_qualify_kernel")
 LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
 
 
@@ -513,15 +653,15 @@ def slab_setup(torch, state, qs, taus, cfg, seed):
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     nl, nk = cfg.n_tables, cfg.n_funcs
     view = prober.table_views(state.index)
-    qcodes = lsh.hash_point(state.index.params, qs, nl)
-    ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
+    qcodes, ham = lsh.query_lanes(state.index.params, qs, view.bucket_codes,
+                                  view.n_buckets)
     nql = qs.shape[0] * nl
     lane = torch.arange(nql, device=dev)
     qual = prober._make_qual(state.x, qs, taus * taus, lane // nl, cfg,
                              **E._pq_args(state, qs, cfg))
     rks = E.draw_round_keys(g, qs.shape[0], nl, dev).reshape(nql, 6)
     ctx, est0, vis0 = prober._table_setup(
-        view, ham, rks, lane % nl, qual,
+        view, ham, qcodes, rks, lane % nl, qual,
         qual.codes is None or cfg.pq_exact_central, cfg)
     del ham
     lanes = torch.randperm(nql, generator=g, device=dev)
@@ -680,21 +820,150 @@ def phase_slab(torch, tag, state, qs, taus, cfg, seed, step=False,
     return res
 
 
+def phase_central(torch, tag, state, qs, taus, cfg, exact=None) -> dict:
+    """``central_qualify`` on ``state`` for the queries' lanes, against the
+    central count it replaced (ring 0's row copied out of the ring cumsums,
+    ``gather_ring_from_cum`` and the row kernels: the same sums) and its
+    plain version: counts equal; hard sums equal to the old composition
+    (and to the plain version, up to d² within MARGIN tau^2 of tau^2 on the
+    exact route); banded sums within rtol 1e-6; the scaled ``est0`` equal.
+    Times beside the bound and the replaced row kernel's device time, and
+    the launches of either. ``exact`` forces the route (default: the
+    config's). Returns the kernel's result entry."""
+    from repro_torch.core import estimator as E, lsh, prober
+    from repro_torch.kernels import ops, ref
+    dev = qs.device
+    nl, k = cfg.n_tables, cfg.n_funcs
+    view = prober.table_views(state.index)
+    qcodes, ham = lsh.query_lanes(state.index.params, qs, view.bucket_codes,
+                                  view.n_buckets)
+    cums = prober.ring_cumsums(view, ham, k)
+    del ham
+    nql = qs.shape[0] * nl
+    lane = torch.arange(nql, device=dev)
+    tid = lane % nl
+    qual = prober._make_qual(state.x, qs, taus * taus, lane // nl, cfg,
+                             **E._pq_args(state, qs, cfg))
+    if exact is None:
+        exact = qual.codes is None or cfg.pq_exact_central
+    budget = cfg.central_budget
+    banded = not exact and qual.resid is not None
+    args = (qcodes, tid, view.bucket_codes, view.n_buckets,
+            view.bucket_starts, view.bucket_sizes, view.order, qual, exact,
+            budget)
+
+    def before():
+        ids, valid, total = ref.gather_ring_from_cum(
+            view, tid, cums[:, 0].contiguous(), budget)
+        qualified = (ref.qualify(qual, ids, lane, exact, rows=ops)
+                     * valid).sum(-1)
+        return qualified, valid.sum(-1, dtype=torch.int32), total, ids, valid
+
+    def scaled(qualified, seen, total):
+        return qualified * torch.where(seen > 0, total / seen.clamp_min(1),
+                                       0.0)
+
+    got = ops.central_qualify(*args)
+    old = before()
+    plain = ref.central_qualify(*args)
+    for i, what in ((1, "seen"), (2, "total")):
+        if not (torch.equal(got[i], old[i]) and torch.equal(got[i], plain[i])):
+            raise AssertionError(f"central_qualify[{tag}]: {what} differs")
+    ties = torch.zeros_like(got[1])
+    if exact:
+        ids, valid = old[3:]
+        d2 = ((qual.x[ids.long()].double() - qual.qs[:, None].double())
+              ** 2).sum(-1)
+        t2 = qual.tau_sq[:, None].double()
+        ties = (((d2 - t2).abs() <= MARGIN * t2) & valid).sum(
+            1, dtype=torch.int32)
+    if banded:
+        for want in (old, plain):
+            torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+    elif not torch.equal(got[0], old[0]) or \
+            ((got[0] - plain[0]).abs() > ties).any():
+        raise AssertionError(f"central_qualify[{tag}]: sums differ")
+    est, est_old = scaled(*got), scaled(*old[:3])
+    if banded:
+        torch.testing.assert_close(est, est_old, rtol=1e-6, atol=1e-6)
+    elif not torch.equal(est, est_old):
+        raise AssertionError(f"central_qualify[{tag}]: est0 differs")
+    seen = got[1]
+    n = int(seen.sum())
+    # lanes of one table with one code share their bucket, and with it the
+    # slice of ids and rows: the bound reads each (table, bucket) once
+    found = got[2] > 0
+    key = torch.cat([tid[:, None].to(torch.int32),
+                     qcodes.reshape(nql, k)], 1)[found]
+    _, inv = torch.unique(key, dim=0, return_inverse=True)
+    nu = int(inv.max()) + 1 if inv.numel() else 0
+    n_u = int(torch.zeros(nu, dtype=torch.int64, device=dev).scatter_(
+        0, inv, seen[found].long()).sum())
+    d = qual.x.shape[1]
+    lut_b = 0 if exact else qual.luts[0].numel() * qual.luts.element_size()
+    m = 0 if exact else qual.luts.shape[1]
+    row_b = 4 * d if exact else qual.codes.shape[1] + (4 if banded else 0)
+    # per lane: its code and table, the matched bucket's code, start and
+    # size, its query row or LUT, tau^2 or threshold (and lane_q), the
+    # outputs; per slot of a distinct bucket: its order entry and row
+    per_lane = 4 * k + 8 + 4 * k + 8 + (4 * d if exact else lut_b + 4) + 4 \
+        + 12
+    res = dict(
+        max_abs_err=float((got[0] - plain[0]).abs().max()),
+        ms=cuda_ms(torch, lambda: ops.central_qualify(*args)),
+        plain_ms=cuda_ms(torch, lambda: ref.central_qualify(*args), iters=5),
+        bound=bound_ms(nql * per_lane + n_u * (4 + row_b),
+                       n * (3 * d if exact else m)),
+        library_ms=None)
+    before_ms = cuda_ms(torch, before, iters=5)
+    dev_us = kernel_device_us(torch, lambda: ops.central_qualify(*args),
+                              "central_qualify_kernel")
+    row_kernel = "l2dist_rows_kernel" if exact else "adc_rows_kernel"
+    row_us = kernel_device_us(torch, before, row_kernel, iters=5)
+    host_now, dev_now = launches_of(torch, lambda: ops.central_qualify(*args))
+    host_old, dev_old = launches_of(torch, before)
+    route = "exact" if exact else "banded ADC" if banded else \
+        "uint8 ADC" if qual.thresh is not None else "float ADC"
+    log(f"central_qualify[{tag}, {nql} lanes x {budget}, {route}, B = "
+        f"{view.bucket_codes.shape[1]}]: {int((got[2] > 0).sum())} lanes "
+        f"found their bucket ({nu} distinct buckets, {n_u} distinct slots), "
+        f"{int((got[2] > budget).sum())} above the budget, {n} points "
+        f"qualified; counts equal, sums equal to the old "
+        f"composition{' (rtol 1e-6)' if banded else ''}, max |diff| to the "
+        f"plain version {res['max_abs_err']} ({int(ties.sum())} d^2 within "
+        f"{MARGIN} tau^2 of tau^2)")
+    log(f"  wrapper {res['ms'] * 1e3:.2f} us per call (CUDA events), kernel "
+        f"{dev_us:.2f} us per launch on the device (profiler); the old "
+        f"composition {before_ms:.4f} ms per call, its {row_kernel} "
+        f"{row_us:.2f} us on the device; plain {res['plain_ms']:.4f} ms; "
+        f"bound {res['bound'][0] * 1e3:.3f} us ({res['bound'][1]})")
+    log(f"  launches: now {host_now} launch calls, {dev_now} device kernels;"
+        f" the old composition {host_old} launch calls, {dev_old} device "
+        "kernels")
+    return res
+
+
 def phase_profile(torch, runs):
     """Where the time goes: torch.profiler over each ``(tag, fn)`` of
     ``runs``; device time by operator and the device's busy share of the
-    wall time."""
+    wall time, the launch calls, and the call's peak device memory."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for tag, fn in runs:
         fn()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        peak = torch.cuda.max_memory_allocated()
+        log(f"profile[{tag}]: peak device memory {peak / 2 ** 30:.3f} GiB, "
+            f"{(peak - live) / 2 ** 30:.3f} GiB above the "
+            f"{live / 2 ** 30:.3f} GiB live before the call")
         # kernels (device rows) give the busy time; operators (host rows)
         # carry the device time of the kernels they launched
         ka = prof.key_averages()
@@ -713,9 +982,11 @@ def phase_profile(torch, runs):
             f"{1 - busy / wall_us:.4f}); device time by operator:")
         for t, c, k in by_op[:10]:
             log(f"  {t:12.1f} us {c:6d} calls  {k}")
-        idx = [(t, c) for t, c, k in by_op if k == "aten::index"]
-        log(f"  aten::index: {sum(t for t, _ in idx) / 1e3:.3f} ms on the "
-            f"device over {sum(c for _, c in idx)} calls")
+        for op in ("aten::index", "aten::copy_", "aten::searchsorted"):
+            rows = [(t, c) for (t, c, k), e in zip(dev_t, ka)
+                    if e.device_type == DeviceType.CPU and k == op]
+            log(f"  {op}: {sum(t for t, _ in rows) / 1e3:.3f} ms on the "
+                f"device over {sum(c for _, c in rows)} calls")
         log(f"  launch calls: {launch_calls(ka)}")
         host = sorted(ka, key=lambda e: -e.self_cpu_time_total)[:6]
         log("  host (self CPU) time by operator: " + ", ".join(
@@ -856,6 +1127,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
             raise AssertionError(f"kernels not launched on the PQ path "
                                  f"({tag}): {missing}")
         all_tiled(launches[tag], f"PQ path ({tag})")
+        none_replaced(launches[tag], f"PQ path ({tag})")
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
@@ -905,8 +1177,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
             E.true_cardinality(state.x, qs, taus, n_valid=n_live)))
     if state.capacity != 2 * CAPACITY:
         raise AssertionError("the growth update did not double capacity")
-    read_launches("prober_cfg", ("slab_qualify", "l2dist_rows", "lsh_hash",
-                                 "hamming_to_buckets"))
+    read_launches("prober_cfg", PATH_KERNELS)
 
     ops.reset_launches()
     sstate, t_build = timed(torch, lambda: E.build(
@@ -922,7 +1193,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
     summarize(torch, "pq estimate @ N (serve_cfg)", out[0], truth)
     log(f"  probed_k mean {float(out[1].float().mean()):.3f}, nvisited "
         f"mean {float(out[2].float().mean()):.1f}")
-    read_launches("serve_cfg", ("slab_qualify", "adc_rows_q8"))
+    read_launches("serve_cfg", PATH_KERNELS)
 
     ops.reset_launches()
     fcfg = scfg.replace(pq_int8_lut=False)
@@ -932,7 +1203,7 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
         f"{t_est * 1e3:.3f} ms")
     summarize(torch, "pq estimate @ N (serve_cfg, float LUTs)", out[0],
               truth)
-    read_launches("serve_cfg, float LUTs", ("slab_qualify", "adc_rows"))
+    read_launches("serve_cfg, float LUTs", PATH_KERNELS)
 
     ops.reset_launches()
     for rnd in ("first", "second"):
@@ -1034,6 +1305,18 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
         elif not torch.equal(got, want):
             raise AssertionError(f"{name} differs from its plain version")
         esz = lut_stack.element_size()
+        # embedding_bag computes the same sums from flattened LUT indices:
+        # candidate (r, i) sums entries lane_q[r] M Kc + m Kc + code_m of
+        # the (Q M Kc, 1) table
+        idx = (lane_q.long()[:, None, None] * (m * kc)
+               + torch.arange(m, device=dev) * kc
+               + cdes[ids.long()].long()).reshape(-1, m)
+        table = lut_stack.float().reshape(-1, 1)
+
+        def lib():
+            return torch.nn.functional.embedding_bag(idx, table, mode="sum")
+
+        lib_err = float((lib().reshape(nl, c) - want.float()).abs().max())
         res[name] = dict(
             max_abs_err=float((got - want).abs().max()),
             ms=cuda_ms(torch, lambda: fn(cdes, ids, lut_stack, lane_q)),
@@ -1044,7 +1327,11 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
             bound=bound_ms(nl * c * (4 + m + 4) + nl * 4
                            + int(lane_q.unique().numel()) * m * kc * esz,
                            nl * c * m),
-            library_ms=None)
+            library_ms=cuda_ms(torch, lib))
+        log(f"{name}({nl} lanes x {c}): kernel "
+            f"{kernel_device_us(torch, lambda: fn(cdes, ids, lut_stack, lane_q), 'adc_rows_kernel'):.2f}"
+            f" us per launch on the device (profiler); embedding_bag agrees "
+            f"to {lib_err}")
 
     # the packed 4-bit layout at the default M = 8, Kc = 16
     pc = torch.randint(0, 16, (nc, 8), generator=g, device=dev,
@@ -1126,8 +1413,15 @@ def main(argv=None) -> int:
     del index, x_pad
     torch.cuda.empty_cache()
     counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)
+    phase_query_lanes(torch, state.index, qs, "2^21")
+    phase_query_lanes(torch, every_row_live(torch, state.index), qs,
+                      "2^21, every row live")
+    torch.cuda.empty_cache()
     res["slab_qualify"] = phase_slab(torch, "exact", state, qs, taus, cfg,
                                      args.seed, step=True)
+    torch.cuda.empty_cache()
+    res["central_qualify"] = phase_central(torch, "exact", state, qs, taus,
+                                           cfg)
     torch.cuda.empty_cache()
     phase_profile(torch, exact_profile_runs(torch, state, qs, taus, cfg,
                                             args.seed))
@@ -1158,6 +1452,15 @@ def main(argv=None) -> int:
             ("serve_cfg uint8", sstate, scfg, None),
             ("serve_cfg uint8, packed codes", sstate, scfg, packed)):
         phase_slab(torch, tag, st, qs, taus, c, args.seed, requal=requal)
+        torch.cuda.empty_cache()
+    for tag, st, c, exact in (
+            ("prober_cfg PQ", pstate, pcfg, None),
+            ("prober_cfg PQ, banded ADC", pstate,
+             pcfg.replace(pq_banded=True), False),
+            ("serve_cfg uint8", sstate, scfg, None),
+            ("serve_cfg float LUTs", sstate,
+             scfg.replace(pq_int8_lut=False), None)):
+        phase_central(torch, tag, st, qs, taus, c, exact)
         torch.cuda.empty_cache()
     phase_profile(torch, [
         ("pq estimate_batch (prober_cfg)", lambda: E.estimate_batch(

@@ -312,3 +312,14 @@ def hamming_to_buckets(bucket_codes: torch.Tensor, n_buckets: torch.Tensor,
     return ops.hamming_to_buckets(bucket_codes.contiguous(),
                                   qcodes.to(torch.int32).contiguous(),
                                   n_buckets.to(torch.int32).contiguous())
+
+
+def query_lanes(params: LSHParams, qs: torch.Tensor, bucket_codes: torch.Tensor,
+                n_buckets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`hash_point` of a batch (Q, d) and :func:`hamming_to_buckets`
+    of its codes, through one fused ``query_lanes`` kernel: → ``(qcodes
+    (Q, L, K), ham (Q, L, B))`` int32."""
+    return ops.query_lanes(qs.float().contiguous(), params.a.contiguous(),
+                           params.b.contiguous(), params.w.contiguous(),
+                           bucket_codes.contiguous(),
+                           n_buckets.to(torch.int32).contiguous())

@@ -29,8 +29,13 @@ batch's LUT stack, candidates qualify on their ADC distance (float, banded
 or uint8 LUTs; packed 4-bit codes are read directly, where the reference's
 ``_gather_codes`` unpacks them first). Near rings ``k <= pq_exact_rings``
 use exact distances: the reference's ``lax.cond`` on ``k`` becomes a
-per-lane choice of route inside the slab kernel. The central bucket
-(Alg. 3) goes through the ``l2dist_rows`` / ``adc_rows[_q8]`` kernels.
+per-lane choice of route inside the slab kernel.
+
+The queries' hash and their Hamming distances to every bucket are one
+``ops.query_lanes`` call, and the central count (Alg. 3) of every lane one
+``ops.central_qualify`` call: ring 0 is at most one bucket, the one whose
+code equals the lane's, so the count reads that bucket's CSR slice and no
+ring-0 cumsum row.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 
 from repro_torch.core import lsh, pq as pqmod, sampling
 from repro_torch.core.config import ProberConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 # the PRP of Alg. 2 lives beside the slab kernel's plain version
 from repro_torch.kernels.ref import prp_eval as _prp_eval  # noqa: F401
 
@@ -57,26 +62,6 @@ class TableView(NamedTuple):
 def table_views(index: lsh.LSHIndex) -> TableView:
     return TableView(index.order, index.bucket_codes, index.bucket_starts,
                      index.bucket_sizes, index.n_buckets)
-
-
-def gather_ring_from_cum(view: TableView, tid: torch.Tensor,
-                         cum: torch.Tensor, budget: int):
-    """Gather up to ``budget`` point ids per lane from a ring's size cumsum.
-
-    ``tid`` (R,) is each lane's table, ``cum`` (R, B) its ring cumsum.
-    Returns (ids (R, budget) int32, valid (R, budget) bool, total (R,)
-    int32), ``total`` being the full ring population |N_k|.
-    """
-    nr, nb = cum.shape
-    total = cum[:, -1]
-    slots = torch.arange(budget, dtype=torch.int32, device=cum.device)
-    j = torch.searchsorted(cum, slots.expand(nr, budget).contiguous(),
-                           right=True).clamp_max(nb - 1)
-    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
-    pos = view.bucket_starts[tid[:, None], j] + (slots - prev)
-    valid = slots < total[:, None]
-    pos = torch.where(valid, pos, 0).clamp(0, view.order.shape[1] - 1)
-    return view.order[tid[:, None], pos.long()], valid, total
 
 
 def ring_cumsums(view: TableView, ham: torch.Tensor,
@@ -96,17 +81,15 @@ def ring_cumsums(view: TableView, ham: torch.Tensor,
     return cums.reshape(nq * nl, n_rings + 1, nb)
 
 
-def _count_central(view: TableView, tid: torch.Tensor, cum0: torch.Tensor,
-                   qual: ops.Qual, exact: bool, lanes: torch.Tensor,
-                   cfg: ProberConfig):
+def _count_central(view: TableView, tid: torch.Tensor, qcodes: torch.Tensor,
+                   qual: ops.Qual, exact: bool, cfg: ProberConfig):
     """Alg. 3: exact count inside B_central for every lane, scaled by
     ``total/seen`` when the bucket exceeds ``central_budget``; candidates
-    qualify exactly, or by ADC when ``exact`` is False."""
-    ids, valid, total = gather_ring_from_cum(view, tid, cum0,
-                                             cfg.central_budget)
-    qualified = (ref.qualify(qual, ids, lanes, exact, rows=ops)
-                 * valid).sum(-1)
-    seen = valid.sum(-1, dtype=torch.int32)
+    qualify exactly, or by ADC when ``exact`` is False. ``qcodes`` holds
+    each lane's code, (Q, L, K) or (Q·L, K)."""
+    qualified, seen, total = ops.central_qualify(
+        qcodes, tid, view.bucket_codes, view.n_buckets, view.bucket_starts,
+        view.bucket_sizes, view.order, qual, exact, cfg.central_budget)
     scale = torch.where(seen > 0, total / seen.clamp_min(1), 0.0)
     return qualified * scale, seen
 
@@ -131,17 +114,16 @@ def _bit_length(v: torch.Tensor) -> torch.Tensor:
     return (v.long()[..., None] >= pows).sum(-1).to(torch.int32)
 
 
-def _table_setup(view: TableView, ham: torch.Tensor, rks: torch.Tensor,
-                 tid: torch.Tensor, qual: ops.Qual, central_exact: bool,
-                 cfg: ProberConfig):
+def _table_setup(view: TableView, ham: torch.Tensor, qcodes: torch.Tensor,
+                 rks: torch.Tensor, tid: torch.Tensor, qual: ops.Qual,
+                 central_exact: bool, cfg: ProberConfig):
     """Loop-free ring construction for every lane: ring cumsums, the exact
-    central count (Alg. 3), PRP domains and Chernoff schedule anchors.
-    Returns ``(ctx, est0, visited0)``."""
+    central count (Alg. 3) of the lanes' codes ``qcodes``, PRP domains and
+    Chernoff schedule anchors. Returns ``(ctx, est0, visited0)``."""
     n_rings = view.bucket_codes.shape[-1]
     cums = ring_cumsums(view, ham, n_rings)
-    lanes = torch.arange(cums.shape[0], device=cums.device)
-    est0, visited0 = _count_central(view, tid, cums[:, 0].contiguous(),
-                                    qual, central_exact, lanes, cfg)
+    est0, visited0 = _count_central(view, tid, qcodes, qual, central_exact,
+                                    cfg)
     totals = cums[:, 1:, -1]
     totals_f = totals.float()
     caps = totals.clamp_max(cfg.ring_budget)
@@ -298,15 +280,15 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     qs = qs.to(dev, torch.float32).contiguous()
     taus = taus.to(dev, torch.float32)
     view = table_views(index)
-    qcodes = lsh.hash_point(index.params, qs, nl)              # (Q, L, K)
-    ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
+    qcodes, ham = lsh.query_lanes(index.params, qs, view.bucket_codes,
+                                  view.n_buckets)      # (Q, L, K), (Q, L, B)
     lane = torch.arange(nq * nl, device=dev)
     lane_q, lane_t = lane // nl, lane % nl
     qual = _make_qual(x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts,
                       pq_resid, pq_packed)
     ctx, est0, visited0 = _table_setup(
-        view, ham, rks.to(dev, torch.int64).reshape(nq * nl, 6), lane_t,
-        qual, qual.codes is None or cfg.pq_exact_central, cfg)
+        view, ham, qcodes, rks.to(dev, torch.int64).reshape(nq * nl, 6),
+        lane_t, qual, qual.codes is None or cfg.pq_exact_central, cfg)
     del ham
     state = _init_state(ctx, est0, visited0, n_rings)
     state = _run_lanes(state, ctx, view, lane_t, qual, cfg)

@@ -29,6 +29,7 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "lsh_hash_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "hamming_to_buckets_i32": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
+    "query_lanes_i32": [_P] * 8 + [_I, _I, _I64, _I, _I, _I, _I, _I64, _P],
     "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P],
     "l2dist_general_f32": [_P, _P, _P, _I64, _I, _I, _P],
     "l2dist_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -37,6 +38,7 @@ SIGNATURES = {
     "adc_batch_f32": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "adc_batch_u8": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
+    "central_qualify": [_P] * 18 + [_I] * 15 + [_P],
 }
 
 

@@ -39,13 +39,49 @@
 //   (k <= exact_rings), else ADC; only the routed one is computed.
 // * No tensor cores: the work is a gather plus a GEMV per lane in fp32,
 //   and TF32 would move d^2 across tau^2.
+//
+// central_qualify (below): Alg. 3's exact count inside each lane's central
+// bucket, in one launch for every lane.
+//
+// Replaces, on the central pass: src/repro/kernels/adc.py, function adc_q8
+// (and adc for float LUTs, l2dist for the exact count), which qualify the
+// ids that the reference's _count_central (repro/core/prober.py) gathers
+// from ring 0's size cumsum by searchsorted. Ring 0 holds at most one
+// bucket -- codes are unique within a table, so only the bucket whose code
+// equals the lane's can lie at distance 0 -- and its points are the
+// contiguous slice order[l, start : start + size] of the CSR layout. So
+// no cumsum row is copied or searched.
+//
+// Bound on an H100: bytes -- per lane its code, the matched bucket's code,
+// start and size, its min(size, budget) order entries and their rows (512
+// B each exact at d = 128, 32 B as PQ codes), its query row or LUT; tens of
+// microseconds at most at 128 lanes x 2048 exact, a few at 64 x 512 uint8.
+// A lane is a chain: find the bucket, then read its ids, then their rows;
+// the design keeps the chain short.
+//
+// Design:
+// * Grid: one block per lane, or a cluster of up to 8 blocks (256 slots
+//   each) where the budget is longer; block rank 0 adds the partial sums
+//   in rank order through distributed shared memory. No float atomics.
+// * The bucket is found by a 256-ary search of the lane's K-int code among
+//   the first n_buckets[l] rows of bucket_codes[l], which are sorted
+//   lexicographically as signed int32 and unique: each step every thread
+//   compares one pivot row, and __syncthreads_count narrows the range; 2
+//   steps at 5,000 buckets, 3 at 2^21. Meanwhile cp.async stages the
+//   lane's query row (exact) or LUT (ADC).
+// * Slots s < min(size, budget) read order[l, start + s]: contiguous, so
+//   coalesced. The routes are slab_qualify's (exact in l2dist_rows' order,
+//   adc_sum.cuh, the IEEE banded weight), so every sum is bit-equal to the
+//   row kernels' and only the weight sum's order differs.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <climits>
 #include <type_traits>
 
 #include "adc_sum.cuh"
+#include "stage.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -55,6 +91,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int NIDX = 1024;     // sparse index entries of a cumsum row
 constexpr int UNROLL = 4;      // exact route: candidates in flight per warp
+constexpr int KMAX = 32;       // central_qualify: code length
 
 enum Mode { EXACT = 0, ADC_F32 = 1, ADC_U8 = 2 };
 
@@ -84,40 +121,6 @@ struct Args {
       splits, stride, nidx;
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-// Start copying `bytes` from device to shared memory: 16 or 4 bytes a copy
-// where both ends allow it, else plain byte loads.
-__device__ __forceinline__ void stage_async(unsigned char* dst,
-                                            const unsigned char* src,
-                                            int bytes) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  if (a % 16 == 0 && bytes % 16 == 0) {
-    for (int e = threadIdx.x; e < bytes / 16; e += THREADS)
-      cp_async16(dst + 16 * e, src + 16 * e);
-  } else if (a % 4 == 0 && bytes % 4 == 0) {
-    for (int e = threadIdx.x; e < bytes / 4; e += THREADS)
-      cp_async4(dst + 4 * e, src + 4 * e);
-  } else {
-    for (int e = threadIdx.x; e < bytes; e += THREADS) dst[e] = src[e];
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // The keyed multiply/xorshift PRP on Z_{2^n} (prober._prp_eval) in native
 // uint32: wrap-around then masking keeps the bits the int64 emulation keeps.
 __device__ __forceinline__ unsigned prp(unsigned x, const unsigned (&rk)[6],
@@ -144,15 +147,165 @@ __device__ __forceinline__ float band_weight(float adc_sq, float r,
   return fminf(fmaxf(w, 0.f), 1.f);
 }
 
+// Exact route: wt[s] = 1[||x[ids[s]] - q||^2 <= tsq] for s < ns, 0 where
+// ids[s] < 0. One warp per candidate, UNROLL candidates in flight per warp,
+// one float4 per lane where vec; fmaf and __shfl_xor in the order of
+// l2dist_rows_kernel (l2dist.cu), so d^2 is bit-equal to it.
+__device__ __forceinline__ void qualify_exact(const float* __restrict__ x,
+                                              int d, int vec, const float* q,
+                                              float tsq, const int* ids,
+                                              float* wt, int ns) {
+  const int wp = threadIdx.x / 32, ln = threadIdx.x % 32;
+  for (int base = wp * UNROLL; base < ns; base += WARPS * UNROLL) {
+    const float* xr[UNROLL];
+    float acc[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int id = base + u < ns ? ids[base + u] : -1;
+      xr[u] = id >= 0 ? x + (int64_t)id * d : nullptr;
+      acc[u] = 0.f;
+    }
+    if (vec) {
+      const float4* q4 = reinterpret_cast<const float4*>(q);
+      for (int j = ln; j < d / 4; j += 32) {
+        const float4 b = q4[j];
+        float4 v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          v[u] = xr[u] ? __ldg(reinterpret_cast<const float4*>(xr[u]) + j)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (!xr[u]) continue;
+          const float e0 = v[u].x - b.x, e1 = v[u].y - b.y,
+                      e2 = v[u].z - b.z, e3 = v[u].w - b.w;
+          acc[u] = fmaf(e0, e0, acc[u]);
+          acc[u] = fmaf(e1, e1, acc[u]);
+          acc[u] = fmaf(e2, e2, acc[u]);
+          acc[u] = fmaf(e3, e3, acc[u]);
+        }
+      }
+    } else {
+      for (int j = ln; j < d; j += 32) {
+        const float b = q[j];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (!xr[u]) continue;
+          const float e = __ldg(xr[u] + j) - b;
+          acc[u] = fmaf(e, e, acc[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+      if (ln == 0 && base + u < ns)
+        wt[base + u] = xr[u] && acc[u] <= tsq ? 1.f : 0.f;
+    }
+  }
+}
+
+// ADC route: one thread per candidate, the code row in registers, the sum
+// over m in order (adc_sum.cuh, shared with adc_rows), so it is bit-equal
+// to it; a hard weight, the banded one where resid is given, or a uint8
+// LUT's int32 sum against th.
+template <int MODE, bool PACK>
+__device__ __forceinline__ void qualify_adc(const uint8_t* __restrict__ codes,
+                                            int cb, int align, int kc,
+                                            const unsigned char* stage,
+                                            const float* __restrict__ resid,
+                                            float tsq, int th, const int* ids,
+                                            float* wt, int ns) {
+  using Lut = typename std::conditional<MODE == ADC_U8, uint8_t, float>::type;
+  const Lut* lut = reinterpret_cast<const Lut*>(stage);
+  for (int s = threadIdx.x; s < ns; s += THREADS) {
+    const int id = ids[s];
+    float w = 0.f;
+    if (id >= 0) {
+      unsigned wd[MAXW];
+      load_row(codes + (int64_t)id * cb, cb, align, wd);
+      if (MODE == ADC_U8) {
+        w = adc_sum<PACK, Lut, int>(wd, cb, lut, kc) <= th ? 1.f : 0.f;
+      } else {
+        const float sq = adc_sum<PACK, Lut, float>(wd, cb, lut, kc);
+        w = resid ? band_weight(sq, __ldg(resid + id), tsq)
+                  : (sq <= tsq ? 1.f : 0.f);
+      }
+    }
+    wt[s] = w;
+  }
+}
+
+struct Red {
+  float wq[WARPS];
+  int w[WARPS];
+  float part_wq;
+  int part_w;
+};
+
+// A lane's weight sum and count of ids >= 0 over slots s < ns, in a fixed
+// order: strided per thread, a shuffle tree per warp, the warps in order;
+// for a lane split over a cluster of `splits` blocks, block rank 0 then
+// adds the blocks' partials in rank order. True in the one thread that
+// holds the lane's sums.
+__device__ __forceinline__ bool lane_sums(Red& red, const float* wt,
+                                          const int* ids, int ns, int splits,
+                                          float& wq, int& w) {
+  float wsum = 0.f;
+  int cnt = 0;
+  for (int s = threadIdx.x; s < ns; s += THREADS) {
+    wsum += wt[s];
+    cnt += ids[s] >= 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  }
+  if (threadIdx.x % 32 == 0) {
+    red.wq[threadIdx.x / 32] = wsum;
+    red.w[threadIdx.x / 32] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float bw = 0.f;
+    int bc = 0;
+    for (int i = 0; i < WARPS; ++i) {
+      bw += red.wq[i];
+      bc += red.w[i];
+    }
+    red.part_wq = bw;
+    red.part_w = bc;
+    wq = bw;
+    w = bc;
+  }
+  if (splits == 1) return threadIdx.x == 0;
+  cg::cluster_group cl = cg::this_cluster();
+  cl.sync();
+  bool mine = false;
+  if (cl.block_rank() == 0 && threadIdx.x == 0) {
+    float bw = 0.f;
+    int bc = 0;
+    for (int r = 0; r < splits; ++r) {
+      bw += *cl.map_shared_rank(&red.part_wq, r);
+      bc += *cl.map_shared_rank(&red.part_w, r);
+    }
+    wq = bw;
+    w = bc;
+    mine = true;
+  }
+  cl.sync();  // keep every block's shared memory until rank 0 has read it
+  return mine;
+}
+
 template <int MODE, bool PACK>
 __global__ void __launch_bounds__(THREADS) slab_qualify_kernel(Args a) {
   using Lut = typename std::conditional<MODE == ADC_U8, uint8_t, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sidx[NIDX];
-  __shared__ float red_wq[WARPS];
-  __shared__ int red_w[WARPS];
-  __shared__ float part_wq;
-  __shared__ int part_w;
+  __shared__ Red red;
 
   const int la = blockIdx.x / a.splits;
   const int slots = (a.chunk + a.splits - 1) / a.splits;
@@ -223,144 +376,153 @@ __global__ void __launch_bounds__(THREADS) slab_qualify_kernel(Args a) {
   }
   __syncthreads();
 
-  if (exact) {
-    const int wp = threadIdx.x / 32, ln = threadIdx.x % 32;
-    const float* q = reinterpret_cast<const float*>(stage);
-    const float tsq = a.tau_sq[lane];
-    for (int base = wp * UNROLL; base < ns; base += WARPS * UNROLL) {
-      const float* xr[UNROLL];
-      float acc[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int id = base + u < ns ? ids[base + u] : -1;
-        xr[u] = id >= 0 ? a.x + (int64_t)id * a.d : nullptr;
-        acc[u] = 0.f;
-      }
-      if (a.vec) {
-        const float4* q4 = reinterpret_cast<const float4*>(q);
-        for (int j = ln; j < a.d / 4; j += 32) {
-          const float4 b = q4[j];
-          float4 v[UNROLL];
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u)
-            v[u] = xr[u] ? __ldg(reinterpret_cast<const float4*>(xr[u]) + j)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            if (!xr[u]) continue;
-            const float e0 = v[u].x - b.x, e1 = v[u].y - b.y,
-                        e2 = v[u].z - b.z, e3 = v[u].w - b.w;
-            acc[u] = fmaf(e0, e0, acc[u]);
-            acc[u] = fmaf(e1, e1, acc[u]);
-            acc[u] = fmaf(e2, e2, acc[u]);
-            acc[u] = fmaf(e3, e3, acc[u]);
-          }
-        }
-      } else {
-        for (int j = ln; j < a.d; j += 32) {
-          const float b = q[j];
-#pragma unroll
-          for (int u = 0; u < UNROLL; ++u) {
-            if (!xr[u]) continue;
-            const float e = __ldg(xr[u] + j) - b;
-            acc[u] = fmaf(e, e, acc[u]);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
-        if (ln == 0 && base + u < ns)
-          wt[base + u] = xr[u] && acc[u] <= tsq ? 1.f : 0.f;
-      }
-    }
-  } else if (MODE != EXACT) {
-    const Lut* lut = reinterpret_cast<const Lut*>(stage);
-    const float tsq = a.tau_sq[lane];
-    const int th = MODE == ADC_U8 ? a.thresh[lane] : 0;
-    for (int s = threadIdx.x; s < ns; s += THREADS) {
-      const int id = ids[s];
-      float w = 0.f;
-      if (id >= 0) {
-        unsigned wd[MAXW];
-        load_row(a.codes + (int64_t)id * a.cb, a.cb, a.align, wd);
-        if (MODE == ADC_U8) {
-          w = adc_sum<PACK, Lut, int>(wd, a.cb, lut, a.kc) <= th ? 1.f : 0.f;
-        } else {
-          const float sq = adc_sum<PACK, Lut, float>(wd, a.cb, lut, a.kc);
-          w = a.resid ? band_weight(sq, __ldg(a.resid + id), tsq)
-                      : (sq <= tsq ? 1.f : 0.f);
-        }
-      }
-      wt[s] = w;
-    }
-  }
+  if (exact)
+    qualify_exact(a.x, a.d, a.vec, reinterpret_cast<const float*>(stage),
+                  a.tau_sq[lane], ids, wt, ns);
+  else if (MODE != EXACT)
+    qualify_adc<MODE, PACK>(a.codes, a.cb, a.align, a.kc, stage, a.resid,
+                            a.tau_sq[lane],
+                            MODE == ADC_U8 ? a.thresh[lane] : 0, ids, wt, ns);
   __syncthreads();
 
-  // fixed-order block sums: strided per thread, a shuffle tree per warp,
-  // the warps in order
-  float wsum = 0.f;
-  int cnt = 0;
-  for (int s = threadIdx.x; s < ns; s += THREADS) {
-    wsum += wt[s];
-    cnt += ids[s] >= 0;
+  float wq;
+  int w;
+  if (lane_sums(red, wt, ids, ns, a.splits, wq, w)) {
+    a.wq_add[la] = wq;
+    a.w_add[la] = w;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    wsum += __shfl_xor_sync(0xffffffffu, wsum, o);
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+}
+
+struct CentralArgs {
+  const int* qcodes;       // (QL, K) each lane's code
+  const int64_t* tid;      // (QL,) tables
+  const int* bcodes;       // (L, B, K) bucket codes, sorted below n_buckets
+  const int* n_buckets;    // (L,)
+  const int* starts;       // (L, B) bucket starts
+  const int* sizes;        // (L, B) bucket sizes
+  const int* order;        // (L, C) point ids in CSR order
+  const float* x;          // (C, d) corpus rows
+  const float* qs;         // (QL, d) each lane's query
+  const float* tau_sq;     // (QL,)
+  const uint8_t* codes;    // (C, cb) byte or packed 4-bit codes
+  const void* luts;        // (Q, M, Kc) float32 or uint8
+  const int* lane_q;       // (QL,) each lane's LUT
+  const float* resid;      // (C,) residual norms: banded weights, or null
+  const int* thresh;       // (QL,) uint8-LUT thresholds
+  float* qualified;        // (QL,)
+  int* seen;               // (QL,)
+  int* total;              // (QL,)
+  int nb, n_points, k, d, budget, cb, m, kc, align, vec, splits;
+};
+
+// -1, 0 or 1 as bucket row `row` sorts before, equal to or after `code`
+// (lexicographic over K signed int32 codes).
+__device__ __forceinline__ int compare_row(const int* __restrict__ row,
+                                           const int* code, int k) {
+  for (int j = 0; j < k; ++j) {
+    const int v = __ldg(row + j);
+    if (v != code[j]) return v < code[j] ? -1 : 1;
   }
-  if (threadIdx.x % 32 == 0) {
-    red_wq[threadIdx.x / 32] = wsum;
-    red_w[threadIdx.x / 32] = cnt;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float bw = 0.f;
-    int bc = 0;
-    for (int i = 0; i < WARPS; ++i) {
-      bw += red_wq[i];
-      bc += red_w[i];
-    }
-    part_wq = bw;
-    part_w = bc;
-    if (a.splits == 1) {
-      a.wq_add[la] = bw;
-      a.w_add[la] = bc;
-    }
-  }
-  if (a.splits == 1) return;
-  // a split lane: block rank 0 of the cluster adds the partials in order
-  cg::cluster_group cl = cg::this_cluster();
-  cl.sync();
-  if (cl.block_rank() == 0 && threadIdx.x == 0) {
-    float bw = 0.f;
-    int bc = 0;
-    for (int r = 0; r < a.splits; ++r) {
-      bw += *cl.map_shared_rank(&part_wq, r);
-      bc += *cl.map_shared_rank(&part_w, r);
-    }
-    a.wq_add[la] = bw;
-    a.w_add[la] = bc;
-  }
-  cl.sync();  // keep every block's shared memory until rank 0 has read it
+  return 0;
 }
 
 template <int MODE, bool PACK>
-int launch(const Args& args, int na, int smem, cudaStream_t stream) {
-  auto kern = slab_qualify_kernel<MODE, PACK>;
+__global__ void __launch_bounds__(THREADS)
+central_qualify_kernel(CentralArgs a) {
+  using Lut = typename std::conditional<MODE == ADC_U8, uint8_t, float>::type;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int code[KMAX];
+  __shared__ int found;
+  __shared__ Red red;
+
+  const int64_t lane = blockIdx.x / a.splits;
+  const int rank = blockIdx.x % a.splits;
+  const int slots = (a.budget + a.splits - 1) / a.splits;
+  const int64_t t = a.tid[lane];
+  int* ids = reinterpret_cast<int*>(smem);
+  float* wt = reinterpret_cast<float*>(smem) + slots;
+  unsigned char* stage = smem + (8 * slots + 15) / 16 * 16;
+
+  // asynchronous staging of the routed query row or LUT, then the search
+  if constexpr (MODE == EXACT) {
+    stage_async(stage, reinterpret_cast<const unsigned char*>(
+                           a.qs + lane * a.d), 4 * a.d);
+  } else {
+    const int lut_bytes = a.m * a.kc * (int)sizeof(Lut);
+    stage_async(stage,
+                reinterpret_cast<const unsigned char*>(a.luts) +
+                    (int64_t)a.lane_q[lane] * lut_bytes,
+                lut_bytes);
+  }
+  if (threadIdx.x < a.k) code[threadIdx.x] = a.qcodes[lane * a.k + threadIdx.x];
+  if (threadIdx.x == 0) found = INT_MAX;
+  __syncthreads();
+
+  // 256-ary search: each step every thread compares one pivot row; the
+  // pivots <= code are a prefix, and the bucket, if any, is one of them or
+  // lies between the last of them and the next pivot
+  const int* rows = a.bcodes + t * (int64_t)a.nb * a.k;
+  int lo = 0, hi = a.n_buckets[t];
+  while (lo < hi) {
+    const int stride = (hi - lo + THREADS - 1) / THREADS;
+    const int idx = lo + threadIdx.x * stride;
+    int cmp = 1;
+    if (idx < hi) {
+      cmp = compare_row(rows + (int64_t)idx * a.k, code, a.k);
+      if (cmp == 0) atomicMin(&found, idx);
+    }
+    const int c = __syncthreads_count(cmp <= 0);
+    if (stride == 1 || c == 0) break;
+    const int nlo = lo + (c - 1) * stride + 1;
+    hi = min(lo + c * stride, hi);
+    lo = nlo;
+  }
+  __syncthreads();
+
+  // the bucket's slots of this block, as contiguous CSR entries
+  const int j = found;
+  const int64_t row = t * (int64_t)a.nb + j;
+  const int size = j != INT_MAX ? __ldg(a.sizes + row) : 0;
+  const int start = j != INT_MAX ? __ldg(a.starts + row) : 0;
+  const int seen = min(size, a.budget);
+  const int ns = max(0, min(slots, seen - rank * slots));
+  const int* ord = a.order + t * (int64_t)a.n_points + start + rank * slots;
+  for (int s = threadIdx.x; s < ns; s += THREADS) ids[s] = __ldg(ord + s);
+  cp_async_wait_all();
+  __syncthreads();
+
+  if constexpr (MODE == EXACT)
+    qualify_exact(a.x, a.d, a.vec, reinterpret_cast<const float*>(stage),
+                  a.tau_sq[lane], ids, wt, ns);
+  else
+    qualify_adc<MODE, PACK>(a.codes, a.cb, a.align, a.kc, stage, a.resid,
+                            a.tau_sq[lane],
+                            MODE == ADC_U8 ? a.thresh[lane] : 0, ids, wt, ns);
+  __syncthreads();
+
+  float wq;
+  int w;
+  if (lane_sums(red, wt, ids, ns, a.splits, wq, w)) {
+    a.qualified[lane] = wq;
+    a.seen[lane] = seen;
+    a.total[lane] = size;
+  }
+}
+
+// Launch `blocks` blocks of THREADS threads in clusters of `splits`.
+template <typename A>
+int launch_clusters(void (*kern)(A), const A& args, int blocks, int splits,
+                    int smem, cudaStream_t stream) {
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(na * args.splits));
+  cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)args.splits;
+  attr[0].val.clusterDim.x = (unsigned)splits;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -368,6 +530,19 @@ int launch(const Args& args, int na, int smem, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&cfg, kern, args);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <int MODE, bool PACK>
+int launch(const Args& args, int na, int smem, cudaStream_t stream) {
+  return launch_clusters(slab_qualify_kernel<MODE, PACK>, args,
+                         na * args.splits, args.splits, smem, stream);
+}
+
+template <int MODE, bool PACK>
+int launch_central(const CentralArgs& args, int nql, int smem,
+                   cudaStream_t stream) {
+  return launch_clusters(central_qualify_kernel<MODE, PACK>, args,
+                         nql * args.splits, args.splits, smem, stream);
 }
 
 }  // namespace
@@ -397,4 +572,32 @@ extern "C" int slab_qualify(
                   : launch<ADC_F32, false>(args, na, smem, s);
   return packed ? launch<ADC_U8, true>(args, na, smem, s)
                 : launch<ADC_U8, false>(args, na, smem, s);
+}
+
+// mode: 0 exact, 1 float32 LUTs, 2 uint8 LUTs (with thresholds). The
+// splits (blocks per lane) and the shared memory come from the wrapper
+// (ops.central_qualify).
+extern "C" int central_qualify(
+    const int* qcodes, const int64_t* tid, const int* bcodes,
+    const int* n_buckets, const int* starts, const int* sizes,
+    const int* order, const float* x, const float* qs, const float* tau_sq,
+    const uint8_t* codes, const void* luts, const int* lane_q,
+    const float* resid, const int* thresh, float* qualified, int* seen,
+    int* total, int nql, int nb, int n_points, int k, int d, int budget,
+    int mode, int cb, int m, int kc, int packed, int align, int vec,
+    int splits, int smem, void* stream) {
+  if (k < 1 || k > KMAX || splits < 1 || splits > 8 || budget < 1)
+    return (int)cudaErrorInvalidValue;
+  CentralArgs args{qcodes, tid,    bcodes, n_buckets, starts, sizes,
+                   order,  x,      qs,     tau_sq,    codes,  luts,
+                   lane_q, resid,  thresh, qualified, seen,   total,
+                   nb,     n_points, k,    d,         budget, cb,
+                   m,      kc,     align,  vec,       splits};
+  auto s = (cudaStream_t)stream;
+  if (mode == EXACT) return launch_central<EXACT, false>(args, nql, smem, s);
+  if (mode == ADC_F32)
+    return packed ? launch_central<ADC_F32, true>(args, nql, smem, s)
+                  : launch_central<ADC_F32, false>(args, nql, smem, s);
+  return packed ? launch_central<ADC_U8, true>(args, nql, smem, s)
+                : launch_central<ADC_U8, false>(args, nql, smem, s);
 }

@@ -18,10 +18,11 @@ from repro_torch.kernels import ref
 # launches per wrapper; "l2dist" counts both of its kernels, and
 # "l2dist_general" the general one alone
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
-                            "l2dist": 0, "l2dist_general": 0,
-                            "l2dist_rows": 0, "adc_rows": 0,
-                            "adc_rows_q8": 0, "adc_batch": 0,
-                            "adc_batch_q8": 0, "slab_qualify": 0}
+                            "query_lanes": 0, "l2dist": 0,
+                            "l2dist_general": 0, "l2dist_rows": 0,
+                            "adc_rows": 0, "adc_rows_q8": 0, "adc_batch": 0,
+                            "adc_batch_q8": 0, "slab_qualify": 0,
+                            "central_qualify": 0}
 
 
 def reset_launches() -> None:
@@ -113,6 +114,68 @@ def hamming_to_buckets(bucket_codes: torch.Tensor, qcodes: torch.Tensor,
                 bucket_codes.data_ptr(), qcodes.data_ptr(),
                 n_buckets.data_ptr(), out.data_ptr(), nq, nl, nb, k)
     return out
+
+
+# query_lanes' blocks share one hash over a cluster of 4 (CLUSTER in
+# csrc/hamming.cu); a block stages at most ~32 KB of query rows at a time
+_LANES_CLUSTER, _LANES_STAGE = 4, 32 * 1024
+
+
+def query_lanes_smem(nq: int, k: int, d: int, qch: int, pad: int) -> int:
+    """Shared memory of one ``query_lanes`` block (``lanes_smem`` in
+    ``csrc/hamming.cu``): the (Q, K) codes, table l's (d, K) columns of
+    ``a`` and ``qch`` staged query rows of d + ``pad`` floats."""
+    return _align16(4 * nq * k) + _align16(4 * d * k) + 4 * qch * (d + pad)
+
+
+def query_lanes(qs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                w: torch.Tensor, bucket_codes: torch.Tensor,
+                n_buckets: torch.Tensor,
+                workers: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """qs (Q, d), a (d, L·K), b (L·K,), w (L·K,) float32; bucket_codes
+    (L, B, K), n_buckets (L,) int32 → ``(qcodes (Q, L, K), ham (Q, L, B))``
+    int32 in one launch: the codes of :func:`lsh_hash` (bit-equal to it)
+    and the distances of :func:`hamming_to_buckets` against them.
+    The grid has one block per 256-row bucket tile; ``workers`` (per table,
+    rounded up to the cluster of 4; 0: 16 per SM over the L tables) is how
+    many of them scan the live tiles and hash. The results are the same
+    for every value."""
+    if _on_cpu(qs, a, b, w, bucket_codes, n_buckets):
+        return ref.query_lanes(qs, a, b, w, bucket_codes, n_buckets)
+    for t, nm, nd in ((qs, "qs", 2), (a, "a", 2), (b, "b", 1), (w, "w", 1)):
+        _check(t, nm, torch.float32, nd)
+    _check(bucket_codes, "bucket_codes", torch.int32, 3)
+    _check(n_buckets, "n_buckets", torch.int32, 1)
+    nq, d = qs.shape
+    nl, nb, k = bucket_codes.shape
+    f = nl * k
+    if (a.shape != (d, f) or b.shape != (f,) or w.shape != (f,)
+            or n_buckets.shape != (nl,)):
+        raise ValueError(f"shapes qs{tuple(qs.shape)} a{tuple(a.shape)} "
+                         f"b{tuple(b.shape)} w{tuple(w.shape)} bucket_codes"
+                         f"{tuple(bucket_codes.shape)} n_buckets"
+                         f"{tuple(n_buckets.shape)}")
+    if not 0 < k <= 32 or nl > 65535 or workers < 0:
+        raise ValueError(f"query_lanes takes 1..32 functions, at most "
+                         f"65535 tables and workers >= 0, got K={k}, L={nl}, "
+                         f"workers={workers}")
+    vec = int(d % 4 == 0 and qs.data_ptr() % 16 == 0)
+    pad = 4 if vec else 1
+    per = -(-nq // _LANES_CLUSTER)
+    room = (_SMEM_LIMIT - query_lanes_smem(nq, k, d, 0, pad)) // (4 * (d + pad))
+    qch = min(per, room, max(1, _LANES_STAGE // (4 * (d + pad))))
+    qcodes = torch.empty((nq, nl, k), dtype=torch.int32, device=qs.device)
+    ham = torch.empty((nq, nl, nb), dtype=torch.int32, device=qs.device)
+    if nq and nl:
+        if qch < 1:
+            raise ValueError(f"{nq} query codes of {k} and a ({d}, {k}) "
+                             "table of a do not fit shared memory")
+        _launch("query_lanes", "query_lanes_i32", qs.data_ptr(),
+                a.data_ptr(), b.data_ptr(), w.data_ptr(),
+                bucket_codes.data_ptr(), n_buckets.data_ptr(),
+                qcodes.data_ptr(), ham.data_ptr(), nq, nl, nb, k, d, qch, vec,
+                workers)
+    return qcodes, ham
 
 
 def hamming(bucket_codes: torch.Tensor, qcode: torch.Tensor) -> torch.Tensor:
@@ -410,6 +473,37 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _qual_adc(qual: Qual, nql: int,
+              n_points: int) -> tuple[int, int, int, int, int, int, int]:
+    """Checks of a :class:`Qual`'s ADC inputs for ``nql`` lanes over
+    ``n_points`` points; returns the kernels' (mode, m, kc, code bytes,
+    packed, alignment, LUT bytes), mode 0 (no codes: exact only), 1
+    (float32 LUTs) or 2 (uint8 LUTs with thresholds)."""
+    if qual.codes is None:
+        return 0, 0, 0, 0, 0, 0, 0
+    q8 = qual.thresh is not None
+    m, kc, cb, packed, align = _adc_layout(
+        qual.codes, qual.luts, torch.uint8 if q8 else torch.float32)
+    _check(qual.lane_q, "lane_q", torch.int32, 1)
+    if qual.lane_q.shape[0] != nql or qual.codes.shape[0] < n_points:
+        raise ValueError(f"lane_q{tuple(qual.lane_q.shape)} and codes"
+                         f"{tuple(qual.codes.shape)} for {nql} lanes "
+                         f"and {n_points} points")
+    if q8:
+        _check(qual.thresh, "thresh", torch.int32, 1)
+        if qual.thresh.shape[0] != nql or qual.resid is not None:
+            raise ValueError("uint8 LUTs take (QL,) thresholds and no "
+                             "residuals")
+    elif qual.resid is not None:
+        _check(qual.resid, "resid", torch.float32, 1)
+        if qual.resid.shape[0] != qual.codes.shape[0]:
+            raise ValueError(f"resid{tuple(qual.resid.shape)} for codes"
+                             f"{tuple(qual.codes.shape)}")
+    mode = 2 if q8 else 1
+    lut_bytes = m * kc * qual.luts.element_size()
+    return mode, m, kc, cb, packed, align, lut_bytes
+
+
 def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
                  tid: torch.Tensor, rks: torch.Tensor, prings: torch.Tensor,
                  caps: torch.Tensor, nbits: torch.Tensor, cums: torch.Tensor,
@@ -465,28 +559,8 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
     if n_rings < 1 or chunk < 1:
         raise ValueError(f"slab_qualify needs K >= 1 rings and chunk >= 1, "
                          f"got K={n_rings}, chunk={chunk}")
-    mode, m, kc, cb, packed, align, lut_bytes = 0, 0, 0, 0, 0, 0, 0
-    if qual.codes is not None:
-        q8 = qual.thresh is not None
-        m, kc, cb, packed, align = _adc_layout(
-            qual.codes, qual.luts, torch.uint8 if q8 else torch.float32)
-        _check(qual.lane_q, "lane_q", torch.int32, 1)
-        if qual.lane_q.shape[0] != nql or qual.codes.shape[0] < n_points:
-            raise ValueError(f"lane_q{tuple(qual.lane_q.shape)} and codes"
-                             f"{tuple(qual.codes.shape)} for {nql} lanes "
-                             f"and {n_points} points")
-        if q8:
-            _check(qual.thresh, "thresh", torch.int32, 1)
-            if qual.thresh.shape[0] != nql or qual.resid is not None:
-                raise ValueError("uint8 LUTs take (QL,) thresholds and no "
-                                 "residuals")
-        elif qual.resid is not None:
-            _check(qual.resid, "resid", torch.float32, 1)
-            if qual.resid.shape[0] != qual.codes.shape[0]:
-                raise ValueError(f"resid{tuple(qual.resid.shape)} for codes"
-                                 f"{tuple(qual.codes.shape)}")
-        mode = 2 if q8 else 1
-        lut_bytes = m * kc * qual.luts.element_size()
+    mode, m, kc, cb, packed, align, lut_bytes = _qual_adc(qual, nql,
+                                                          n_points)
     # a lane's chunk is split over up to 4 blocks (one cluster) of <= 128
     # slots each where it can be; a block's dynamic shared memory holds the
     # lane's query row or LUT, then an id and a weight per slot
@@ -511,3 +585,94 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
                 qual.exact_rings, mode, cb, m, kc, packed, align, vec, splits,
                 smem)
     return wq_add, w_add
+
+
+# ---- the central bucket (Alg. 3) -----------------------------------------
+
+# central_qualify splits a lane over a cluster of up to 8 blocks of <= 256
+# slots each
+_CENTRAL_SLOTS, _CENTRAL_SPLITS = 256, 8
+
+
+def central_qualify(qcodes: torch.Tensor, tid: torch.Tensor,
+                    bucket_codes: torch.Tensor, n_buckets: torch.Tensor,
+                    bucket_starts: torch.Tensor, bucket_sizes: torch.Tensor,
+                    order: torch.Tensor, qual: Qual, exact: bool,
+                    budget: int) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Alg. 3's central count of every lane in one launch: ``(qualified
+    (QL,) float32, seen (QL,) int32, total (QL,) int32)``.
+
+    Lane ``i`` (table ``tid[i]``, int64; code ``qcodes.reshape(-1, K)[i]``,
+    int32) finds the bucket among the first ``n_buckets[tid[i]]`` rows of
+    ``bucket_codes`` (L, B, K) whose code equals its own (those rows are
+    sorted lexicographically and unique, as the index builds them), and
+    qualifies its first ``seen = min(size, budget)`` points, the CSR slice
+    ``order[tid[i], start + s]``: exactly when ``exact``, else by ADC as
+    ``qual`` routes far rings. ``qualified`` sums their weights, ``total``
+    is the bucket's size; a lane whose code matches no bucket gets 0 for
+    all three.
+    """
+    opt = [t for t in qual[3:8] if t is not None]
+    if _on_cpu(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
+               bucket_sizes, order, qual.x, qual.qs, qual.tau_sq, *opt):
+        return ref.central_qualify(qcodes, tid, bucket_codes, n_buckets,
+                                   bucket_starts, bucket_sizes, order, qual,
+                                   exact, budget)
+    _check(bucket_codes, "bucket_codes", torch.int32, 3)
+    nl, nb, k = bucket_codes.shape
+    if qcodes.dtype != torch.int32 or not qcodes.is_contiguous() or \
+            qcodes.dim() < 2 or qcodes.shape[-1] != k:
+        raise ValueError(f"qcodes: expected contiguous int32 (..., {k}), got "
+                         f"{qcodes.dtype} {tuple(qcodes.shape)}")
+    _check(tid, "tid", torch.int64, 1)
+    _check(n_buckets, "n_buckets", torch.int32, 1)
+    for t, nm in ((bucket_starts, "bucket_starts"),
+                  (bucket_sizes, "bucket_sizes"), (order, "order")):
+        _check(t, nm, torch.int32, 2)
+    _check(qual.x, "x", torch.float32, 2)
+    _check(qual.qs, "qs", torch.float32, 2)
+    _check(qual.tau_sq, "tau_sq", torch.float32, 1)
+    nql, d = qual.qs.shape
+    n_points = order.shape[1]
+    if (qcodes.numel() != nql * k or tid.shape[0] != nql
+            or n_buckets.shape != (nl,) or bucket_starts.shape != (nl, nb)
+            or bucket_sizes.shape != (nl, nb) or order.shape[0] != nl
+            or qual.x.shape[1] != d or qual.x.shape[0] < n_points
+            or qual.tau_sq.shape != (nql,)):
+        shapes = {nm: tuple(t.shape) for nm, t in (
+            ("qcodes", qcodes), ("tid", tid),
+            ("bucket_codes", bucket_codes), ("n_buckets", n_buckets),
+            ("bucket_starts", bucket_starts), ("bucket_sizes", bucket_sizes),
+            ("order", order), ("x", qual.x), ("qs", qual.qs),
+            ("tau_sq", qual.tau_sq))}
+        raise ValueError(f"central_qualify shapes do not agree: {shapes}")
+    if not 0 < k <= 32 or budget < 1:
+        raise ValueError(f"central_qualify takes 1..32 functions and a "
+                         f"budget >= 1, got K={k}, budget={budget}")
+    if not exact and qual.codes is None:
+        raise ValueError("an ADC central count needs PQ codes")
+    mode, m, kc, cb, packed, align, lut_bytes = (0,) * 7 if exact else \
+        _qual_adc(qual, nql, n_points)
+    splits = min(_CENTRAL_SPLITS, -(-budget // _CENTRAL_SLOTS))
+    slots = -(-budget // splits)
+    smem = _align16(8 * slots) + _align16(lut_bytes if mode else 4 * d)
+    if smem > 200 * 1024:
+        raise ValueError(f"d={d}, a {lut_bytes}-byte LUT and {slots} slots "
+                         "per block do not fit shared memory")
+    vec = int(d % 4 == 0 and qual.x.data_ptr() % 16 == 0)
+    dev = qual.qs.device
+    qualified = torch.empty(nql, dtype=torch.float32, device=dev)
+    seen = torch.empty(nql, dtype=torch.int32, device=dev)
+    total = torch.empty(nql, dtype=torch.int32, device=dev)
+    if nql:
+        _launch("central_qualify", "central_qualify", qcodes.data_ptr(),
+                tid.data_ptr(), bucket_codes.data_ptr(), n_buckets.data_ptr(),
+                bucket_starts.data_ptr(), bucket_sizes.data_ptr(),
+                order.data_ptr(), qual.x.data_ptr(), qual.qs.data_ptr(),
+                qual.tau_sq.data_ptr(), _ptr(qual.codes), _ptr(qual.luts),
+                _ptr(qual.lane_q), _ptr(qual.resid), _ptr(qual.thresh),
+                qualified.data_ptr(), seen.data_ptr(), total.data_ptr(), nql,
+                nb, n_points, k, d, budget, mode, cb, m, kc, packed, align,
+                vec, splits, smem)
+    return qualified, seen, total

@@ -27,6 +27,15 @@ def hamming_to_buckets(bucket_codes, qcodes, n_buckets):
     return torch.where(valid[None], dist, k + 1).to(torch.int32)
 
 
+def query_lanes(qs, a, b, w, bucket_codes, n_buckets):
+    """The query hash and its Hamming distances: :func:`lsh_hash` of ``qs``
+    (Q, d) reshaped to (Q, L, K) codes, then :func:`hamming_to_buckets`
+    against ``bucket_codes`` (L, B, K) → ``(qcodes, ham)``."""
+    nl, _, k = bucket_codes.shape
+    qcodes = lsh_hash(qs, a, b, w).reshape(qs.shape[0], nl, k)
+    return qcodes, hamming_to_buckets(bucket_codes, qcodes, n_buckets)
+
+
 def l2dist(x, q):
     """x (N, d), q (Q, d) → (N, Q) squared distances, one query at a time so
     that no (N, Q, d) intermediate is materialised."""
@@ -209,3 +218,56 @@ def slab_qualify(k, ci, lanes, tid, rks, prings, caps, nbits, cums, starts,
             near = (k.clamp_max(prings.shape[1]) <= qual.exact_rings)[:, None]
             wt = torch.where(near, qualify(qual, sl, lanes, True, rows), wt)
     return (wt * ok).sum(-1), ok.sum(-1, dtype=torch.int32)
+
+
+def central_qualify(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
+                    bucket_sizes, order, qual, exact: bool, budget: int):
+    """Alg. 3's central count of every lane: ``(qualified (QL,) float32,
+    seen (QL,) int32, total (QL,) int32)``. Lane ``i`` (table ``tid[i]``,
+    code ``qcodes.reshape(-1, K)[i]``) finds its bucket by brute force,
+    the row of ``bucket_codes[tid[i]]`` below ``n_buckets`` equal to its
+    code, and qualifies the bucket's first ``seen = min(size, budget)``
+    points ``order[tid[i], start + s]`` through :func:`qualify` (exactly,
+    or by ADC as ``qual`` routes it); ``total`` is the bucket's size. A
+    lane whose code matches no bucket gets 0 for all three. The ids are
+    the ones the ring-0 cumsum walk gives, laid out the same way, so the
+    sums agree with it bit for bit."""
+    nb, k = bucket_codes.shape[1:]
+    qc = qcodes.reshape(-1, k)
+    tid = tid.long()
+    dev = qc.device
+    match = torch.arange(nb, device=dev)[None, :] < n_buckets[tid][:, None]
+    for j in range(k):
+        match &= bucket_codes[:, :, j][tid] == qc[:, j, None]
+    row = match.to(torch.int32).argmax(1)
+    total = torch.where(match.any(1), bucket_sizes[tid, row], 0)
+    seen = total.clamp_max(budget)
+    slots = torch.arange(budget, dtype=torch.int32, device=dev)
+    valid = slots < seen[:, None]
+    pos = torch.where(valid, bucket_starts[tid, row][:, None] + slots, 0)
+    ids = order[tid[:, None], pos.clamp(0, order.shape[1] - 1).long()]
+    lanes = torch.arange(qc.shape[0], device=dev)
+    qualified = (qualify(qual, ids, lanes, exact) * valid).sum(-1)
+    return qualified, seen, total
+
+
+def gather_ring_from_cum(view, tid, cum, budget: int):
+    """Gather up to ``budget`` point ids per lane from a ring's size cumsum
+    (the reference's ``prober.gather_ring_from_cum``): the central count's
+    composition before :func:`central_qualify`, over ring 0's cumsum row.
+
+    ``view`` holds the index's ``bucket_starts`` (L, B) and ``order`` (L,
+    C), ``tid`` (R,) is each lane's table, ``cum`` (R, B) its ring cumsum.
+    Returns (ids (R, budget) int32, valid (R, budget) bool, total (R,)
+    int32), ``total`` being the full ring population |N_k|.
+    """
+    nr, nb = cum.shape
+    total = cum[:, -1]
+    slots = torch.arange(budget, dtype=torch.int32, device=cum.device)
+    j = torch.searchsorted(cum, slots.expand(nr, budget).contiguous(),
+                           right=True).clamp_max(nb - 1)
+    prev = torch.where(j > 0, cum.gather(1, (j - 1).clamp_min(0)), 0)
+    pos = view.bucket_starts[tid[:, None], j] + (slots - prev)
+    valid = slots < total[:, None]
+    pos = torch.where(valid, pos, 0).clamp(0, view.order.shape[1] - 1)
+    return view.order[tid[:, None], pos.long()], valid, total

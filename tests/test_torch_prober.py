@@ -14,6 +14,7 @@ from repro.core import config as jconfig, estimator as JE, lsh as jlsh, \
     prober as jprober
 from repro_torch import bridge
 from repro_torch.core import config, estimator as E, lsh, prober
+from repro_torch.kernels import ref
 
 KW = dict(n_tables=2, n_funcs=8, ring_budget=512, central_budget=256,
           chunk=128, max_visit=2048)
@@ -102,7 +103,7 @@ def test_ring_cumsums_and_central_gather_bit_equal(setup):
     ham = lsh.hamming_to_buckets(view.bucket_codes, view.n_buckets, qcodes)
     cums = prober.ring_cumsums(view, ham, 8)
     tid = torch.arange(NQ * 2) % 2
-    ids, valid, total = prober.gather_ring_from_cum(
+    ids, valid, total = ref.gather_ring_from_cum(
         view, tid, cums[:, 0].contiguous(), 256)
     jviews = jprober.table_views(jix)
     for q in (0, 5):

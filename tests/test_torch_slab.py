@@ -103,8 +103,8 @@ def slab_setup():
             jv, jnp.asarray(qcodes[q, t].numpy()), central, jcfg, keys[i])
         jctx.append((jv, ctx))
     rks = torch.stack([_t(c.rks).long() for _, c in jctx])
-    ctx, _, _ = prober._table_setup(view, ham, rks, lane % NL, qual, True,
-                                    config.ProberConfig(**KW))
+    ctx, _, _ = prober._table_setup(view, ham, qcodes, rks, lane % NL, qual,
+                                    True, config.ProberConfig(**KW))
     for name in ("prings", "caps", "nbits", "totals_f"):
         np.testing.assert_array_equal(
             getattr(ctx, name).numpy(),
