@@ -67,6 +67,38 @@ Phases, in order; each raises on failure:
 11. Small-input agreement of the PQ path (packed 4-bit codes, float and
     uint8 LUTs) between the CPU and the GPU.
 
+The serving path runs between 7 and 8:
+
+S1. The serving deployment at the main path's width: the exact state at
+    capacity 2^20 with ingest epochs, ``CardinalityCoalescer(cache_size=
+    1024, max_batch=64, reuse_tol=0)``, a pool of the 64 paper-protocol
+    queries x 4 grid radii, 24 flushes of 64 zipfian (s = 0.99) draws over
+    a seeded shuffle of the pool, the main path's 16,384 rows ingested
+    after flush 8 and its 40,000 after flush 16 (growth to 2^21), and one
+    point anchored on a live row (inside every projection range, so W
+    stays) after flushes 10, 12, 14, 18, 20 and 22. Launch
+    counts are zeroed before the first flush and read after the last; a
+    flush with a miss launches ``query_lanes`` once for the keys and once
+    for its probe, ``cache_insert`` and ``central_qualify`` once, an
+    all-hit flush ``query_lanes`` once, and no flush ``lsh_hash`` or
+    ``hamming_to_buckets``. A shadow check (``tests/test_cache.py``'s)
+    sees no stale serve, every hit equals its probe's estimate bit for
+    bit, and every request of a recorded key is a hit when no ingest
+    touched its probed rings and a stale refresh when one did. Hits
+    before the first ingest, and stale refreshes after the ingests that
+    keep W (``params_epoch`` unchanged, some entries but not all touched)
+    must occur. Prints each flush's hits, misses, stale entries,
+    evictions, wall ms and peak memory, and the served q-error before the
+    first ingest; then the lookup's and ``query_lanes``' times at the
+    flush's shapes and profiles of an all-hit and an all-miss flush.
+S2. ``cache_insert`` against its plain version, ``torch.equal`` on every
+    field (S = 1024 and 65,536; 64 and 256 lanes; duplicate keys; a full
+    cache with every ``ref`` set), with wrapper, device and plain-loop
+    times and the bound.
+S3. Small-input agreement of the serving path: the same stream at
+    reuse_tol 0.25 through a CPU and a GPU coalescer with the same round
+    keys.
+
 Ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line. Exits non-zero, printing no result, without CUDA or without the
 package beside it.
@@ -88,6 +120,21 @@ CFG_KW = dict(n_tables=2, n_funcs=10, ring_budget=2048, central_budget=2048,
               chunk=128, eps=0.01)
 N, DIM, CAPACITY, NQ = 1_000_000, 128, 2 ** 20, 64
 N_INGEST, N_GROW = 16_384, 40_000
+# the serving deployment: CardinalityCoalescer(cache_size=1024,
+# max_batch=64, reuse_tol=0) on the exact state; a pool of the NQ queries x
+# SERVE_RADII grid radii; SERVE_FLUSHES flushes of 64 zipfian draws; the
+# main path's two ingests before the flushes named (after flushes 8, 16),
+# and SERVE_TRICKLE point anchored on a live row (noise SERVE_NOISE, the
+# reference's benchmarks/workloads.py _ingest_batch) before each flush of
+# SERVE_TRICKLES. One point, not the reference's mixed pacing of 32 every
+# 128 events: on this config a probed ball holds 14-97 % of the corpus, so
+# 32 points touch every entry and the ball check would never keep one
+SERVE_CACHE, SERVE_BATCH, SERVE_FLUSHES, SERVE_RADII = 1024, 64, 24, 4
+ZIPF_S = 0.99
+SERVE_INGESTS = {8: (N, N + N_INGEST),
+                 16: (N + N_INGEST, N + N_INGEST + N_GROW)}
+SERVE_TRICKLE, SERVE_NOISE = 1, 0.05
+SERVE_TRICKLES = (10, 12, 14, 18, 20, 22)
 # benchmarks/common.py prober_cfg(use_pq=True, d=128) and serve_cfg(d=128)
 PQ_KW = dict(use_pq=True, pq_m=32, pq_kc=64, pq_iters=8)
 PROBER_PQ_KW = dict(CFG_KW, pq_exact_rings=2, **PQ_KW)
@@ -112,7 +159,9 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
                             "src/repro/kernels/adc.py:67",
             "central_qualify": "src/repro/kernels/adc.py:153, "
                                "src/repro/kernels/adc.py:67, "
-                               "src/repro/kernels/l2dist.py:41"}
+                               "src/repro/kernels/l2dist.py:41",
+            "cache_insert": "src/repro/cache/estimate_cache.py:166 (insert, "
+                            "a jax.lax.fori_loop; no pallas_call)"}
 # the kernels every estimator path launches, and the ones they replaced
 # there (still built and held against their plain versions)
 PATH_KERNELS = ("query_lanes", "slab_qualify", "central_qualify")
@@ -124,7 +173,7 @@ SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
            "l2dist_rows": "l2dist.cu", "adc_rows": "adc.cu",
            "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
            "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu",
-           "central_qualify": "slab.cu"}
+           "central_qualify": "slab.cu", "cache_insert": "cache.cu"}
 
 def log(*a):
     print(*a, flush=True)
@@ -634,7 +683,7 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
 KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "query_lanes_kernel",
                 "l2dist_kernel", "l2dist_tiled_kernel", "l2dist_rows_kernel",
                 "adc_rows_kernel", "adc_batch_kernel", "slab_qualify_kernel",
-                "central_qualify_kernel")
+                "central_qualify_kernel", "cache_insert_kernel")
 LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
 
 
@@ -1384,6 +1433,534 @@ def tie_free_pq_queries(state, qs, taus, cfg):
     return ok
 
 
+# ---- the serving path: CardinalityCoalescer with the estimate cache -------
+
+def zipf_stream(np, seed, n_pool, n_flushes, batch):
+    """(n_flushes, batch) pool indices: zipfian (s = ZIPF_S) ranks over a
+    seeded shuffle of the pool."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n_pool)
+    w = 1.0 / np.arange(1, n_pool + 1) ** ZIPF_S
+    return perm[rng.choice(n_pool, size=(n_flushes, batch), p=w / w.sum())]
+
+
+class ServeShadow:
+    """``tests/test_cache.py::_ShadowTracker`` on the card: for every
+    probed key, whether an ingest since its probe landed within its probed
+    rings (W compared bitwise; the new points' codes, as the index holds
+    them, against the entry's query codes, distance against its
+    ``probed_k``). A key is the pool index and the query's codes under the
+    current W. A hit of a dirty key is a stale serve, and a hit must equal
+    the probe's estimate bit for bit. While nothing was evicted, a request
+    of a recorded key must be a hit when it is clean and a stale refresh
+    when it is dirty, and a new key a probe; a query within ``MARGIN`` of
+    a hash boundary, where the plain hash may disagree with the kernel's,
+    is held to the first two rules only. Query codes come from the plain
+    hash (``ref.lsh_hash``), so the shadow launches none of the port's
+    kernels."""
+
+    def __init__(self, torch, nl):
+        self.torch, self.nl = torch, nl
+        self.entries: dict = {}
+        self.hits = self.held = 0
+
+    def key(self, state, j, q):
+        from repro_torch.kernels import ref
+        p = state.index.params
+        codes = ref.lsh_hash(q[None], p.a, p.b, p.w).reshape(self.nl, -1)
+        tie = bool(near_integer(self.torch, q[None], p.a, p.b, p.w).any())
+        return (j, codes.cpu().numpy().tobytes()), codes, tie
+
+    def flush(self, state, picks, qs, reqs, evicted):
+        """Hold one flush's answers to the entries as they stood before it
+        (its lookups precede its inserts), then record its probes; of
+        duplicate keys the last lane's probe stays, as in the cache."""
+        keyed = [self.key(state, j, q) for j, q in zip(picks, qs)]
+        for (key, _, tie), r in zip(keyed, reqs):
+            e = self.entries.get(key)
+            if r.provenance == "hit":
+                self.hits += 1
+                if e is None and tie:
+                    continue
+                if e is None:
+                    raise AssertionError("a hit without a recorded probe")
+                if e["dirty"]:
+                    raise AssertionError("stale serve: an ingest touched "
+                                         "the entry's probed rings")
+                if r.est != e["est"]:
+                    raise AssertionError("a hit differs from its probe's "
+                                         "estimate")
+            elif not (tie or evicted):
+                want = ("probe" if e is None else "stale-refresh"
+                        if e["dirty"] else "hit")
+                if r.provenance != want:
+                    raise AssertionError(
+                        f"a request answered as {r.provenance}; the shadow "
+                        f"expects {want}")
+                self.held += 1
+        for (key, codes, _), r in zip(keyed, reqs):
+            if r.provenance != "hit":
+                self.entries[key] = {
+                    "qcodes": codes, "w": state.index.params.w.clone(),
+                    "probed_k": self.torch.as_tensor(r.probed_k,
+                                                     device=codes.device),
+                    "dirty": False, "est": r.est}
+
+    def note_ingest(self, state_after, lo, hi):
+        """Mark the entries that rows ``lo:hi`` of ``state_after`` touch;
+        returns (entries clean before, entries marked)."""
+        ix = state_after.index
+        new = ix.codes[:, lo:hi].transpose(0, 1)               # (n, L, K)
+        w = ix.params.w
+        clean = [e for e in self.entries.values() if not e["dirty"]]
+        for e in clean:
+            if not self.torch.equal(e["w"], w):
+                e["dirty"] = True
+                continue
+            d = (new != e["qcodes"][None]).sum(-1).amin(0)      # (L,)
+            if bool((d <= e["probed_k"]).any()):
+                e["dirty"] = True
+        return len(clean), sum(e["dirty"] for e in clean)
+
+
+def anchored_rows(torch, state, g, n):
+    """``n`` new points near live ones (``benchmarks/workloads.py``
+    ``_ingest_batch``: a random live row plus ``SERVE_NOISE`` Gaussian
+    noise) whose raw projections lie inside every function's live range by
+    a margin of 1e-3 of it, so Alg. 7 keeps W bit for bit."""
+    from repro_torch.core import lsh
+    ix, nv = state.index, int(state.n_valid)
+    raw = ix.raw[:nv]
+    lo, hi = raw.amin(0), raw.amax(0)
+    m = 1e-3 * (hi - lo)
+    dev = state.x.device
+    rows = torch.randint(0, nv, (4 * n,), generator=g, device=dev)
+    x = state.x[rows] + SERVE_NOISE * torch.randn(
+        (4 * n, state.x.shape[1]), generator=g, device=dev)
+    r = lsh.project_raw(ix.params, x)
+    x = x[((r > lo + m) & (r < hi - m)).all(1)][:n]
+    if x.shape[0] < n:
+        raise AssertionError("too few anchored rows inside the ranges")
+    return x.contiguous()
+
+
+def flush_requests(co, pool_q, pool_t, picks):
+    reqs = [co.submit(pool_q[j], pool_t[j]) for j in picks]
+    co.flush()
+    return reqs
+
+
+def phase_serving(torch, corpus, cfg, seed):
+    """The serving deployment at the main path's width: the exact state at
+    capacity 2^20 with ingest epochs, ``CardinalityCoalescer(cache_size=
+    1024, max_batch=64, reuse_tol=0)``, a pool of the 64 paper-protocol
+    queries x 4 grid radii, 24 flushes of 64 zipfian draws over it, the main
+    path's ingests after flushes 8 (16,384 rows, in capacity) and 16 (40,000
+    rows, growth to 2^21), one anchored point that keeps W after flushes
+    10, 12, 14 (at 2^20) and 18, 20, 22 (at 2^21). Launch counts are
+    zeroed before the first flush and read after the last; each flush is
+    held to its launches and to the shadow. Returns the counts, the
+    coalescer and the last flush's pool indices."""
+    import numpy as np
+    from repro_torch.core import estimator as E
+    from repro_torch.data import vectors
+    from repro_torch.kernels import ops
+    from repro_torch.serve.coalescer import CardinalityCoalescer
+    dev = corpus.device
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    state, t_build = timed(torch, lambda: E.build(
+        corpus[:N], cfg, g, capacity=CAPACITY, device=dev,
+        track_epochs=True))
+    qs, grid, _ = vectors.paper_query_workload(g, corpus[:N], NQ)
+    cols = torch.linspace(0, grid.shape[1] - 1, SERVE_RADII).round().long()
+    pool_qt = qs.repeat_interleave(SERVE_RADII, 0)
+    pool_tt = grid[:, cols.to(dev)].reshape(-1).contiguous()
+    truth = E.true_cardinality(state.x, pool_qt, pool_tt, n_valid=N).cpu()
+    pool_q, pool_t = pool_qt.cpu().numpy(), pool_tt.cpu().numpy()
+    n_pool = pool_q.shape[0]
+    draws = zipf_stream(np, seed + 21, n_pool, SERVE_FLUSHES, SERVE_BATCH)
+    log(f"serving: build {t_build:.3f} s (N {N}, capacity {CAPACITY}, "
+        f"epochs attached); pool {n_pool} = {NQ} queries x {SERVE_RADII} "
+        f"radii (grid columns {cols.tolist()} of {grid.shape[1]}); "
+        f"{SERVE_FLUSHES} flushes of {SERVE_BATCH} zipfian (s = {ZIPF_S}) "
+        f"draws, {len(np.unique(draws))} distinct pairs drawn; pool digest "
+        f"{digest(pool_tt)}")
+    co = CardinalityCoalescer(state, cfg, g, max_batch=SERVE_BATCH,
+                              cache_size=SERVE_CACHE, reuse_tol=0.0)
+    g_in = torch.Generator(device=dev).manual_seed(seed + 22)
+    shadow = ServeShadow(torch, cfg.n_tables)
+    served_est, served_truth = [], []
+    walls, peaks, touched = [], [], []
+    stale_after = hits_before = stale_kept = 0
+    first_ingest = min(SERVE_INGESTS)
+    kept_w = False          # the last ingest kept W
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    for f in range(SERVE_FLUSHES):
+        if f in SERVE_INGESTS or f in SERVE_TRICKLES:
+            lo = int(co.state.n_valid)
+            if f in SERVE_INGESTS:
+                x_new = corpus[slice(*SERVE_INGESTS[f])]
+            else:
+                x_new = anchored_rows(torch, co.state, g_in, SERVE_TRICKLE)
+            hi = lo + x_new.shape[0]
+            pe0 = int(co.state.epochs.params_epoch)
+            _, t_in = timed(torch, lambda: (co.ingest(x_new.cpu().numpy()),
+                                            co.apply_ingest()))
+            ep = co.state.epochs
+            kept_w = f in SERVE_TRICKLES
+            if kept_w and int(ep.params_epoch) != pe0:
+                raise AssertionError(f"serving: the anchored ingest after "
+                                     f"flush {f} moved W")
+            clean, marked = shadow.note_ingest(co.state, lo, hi)
+            if kept_w:
+                touched.append((clean, marked))
+            log(f"serving: ingest of {hi - lo} "
+                f"{'anchored' if kept_w else 'corpus'} rows after flush {f}"
+                f": {t_in:.3f} s ({(hi - lo) / t_in:.1f} points/s, chunks "
+                f"of {cfg.ingest_chunk}); n_valid {int(co.state.n_valid)}, "
+                f"capacity {co.state.capacity}, params_epoch {pe0} -> "
+                f"{int(ep.params_epoch)}, n_ingested {int(ep.n_ingested)}; "
+                f"the shadow marks {marked} of {clean} clean entries")
+        before, stats0 = dict(ops.LAUNCHES), dict(co.cache_stats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reqs = flush_requests(co, pool_q, pool_t, draws[f])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - live) / 2 ** 30
+        d = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        st = {k: co.cache_stats[k] - stats0[k] for k in stats0}
+        probes = int(st["misses"] > 0)
+        want = {"query_lanes": 1 + probes, "cache_insert": probes,
+                "central_qualify": probes, "lsh_hash": 0,
+                "hamming_to_buckets": 0}
+        bad = {k: (d[k], v) for k, v in want.items() if d[k] != v}
+        if bad:
+            raise AssertionError(f"serving flush {f}: launches (got, want) "
+                                 f"{bad}")
+        shadow.flush(co.state, [int(j) for j in draws[f]],
+                     torch.from_numpy(pool_q[draws[f]]).to(dev), reqs,
+                     co.cache_stats["evicts"] > 0)
+        if f < first_ingest:
+            served_est += [r.est for r in reqs]
+            served_truth += [float(truth[j]) for j in draws[f]]
+            hits_before += st["hits"]
+        else:
+            stale_after += st["stale"]
+            stale_kept += st["stale"] if kept_w else 0
+        walls.append((wall, st))
+        peaks.append(peak)
+        ran = {k: v for k, v in d.items() if v}
+        log(f"serving flush {f:2d}: hits {st['hits']:2d} misses "
+            f"{st['misses']:2d} stale {st['stale']:2d} evicts "
+            f"{st['evicts']:2d}; wall {wall:.3f} ms; peak {peak:.3f} GiB "
+            f"above live; launches {json.dumps(ran)}")
+    counts = dict(ops.LAUNCHES)
+    log(f"serving launches: {json.dumps(counts)}")
+    if hits_before == 0:
+        raise AssertionError("serving: no hit before the first ingest")
+    if stale_kept == 0:
+        raise AssertionError("serving: no stale refresh after an ingest "
+                             "that kept W")
+    marked, clean = (sum(t[i] for t in touched) for i in (1, 0))
+    if not 0 < marked < clean:
+        raise AssertionError(f"serving: the ingests that kept W marked "
+                             f"(clean, marked) {touched}: none, or all")
+    if shadow.hits != co.cache_stats["hits"]:
+        raise AssertionError("serving: the shadow saw another hit count")
+    log(f"serving: no stale serve over {shadow.hits} hits (shadow check), "
+        f"{shadow.held} misses as the shadow has them (a new key a probe, "
+        f"a touched one a stale refresh); cache_stats "
+        f"{json.dumps(co.cache_stats)}; hits before the first ingest "
+        f"{hits_before}, stale refreshes after it "
+        f"{stale_after}, {stale_kept} of them after ingests that kept W "
+        f"(entries clean, marked: {touched})")
+    all_miss = [w for w, st in walls if st["hits"] == 0]
+    most = max(walls, key=lambda ws: ws[1]["hits"])
+    log("serving: all-miss flush wall "
+        f"{', '.join(f'{w:.3f}' for w in all_miss)} ms; mostly-hit flush "
+        f"({most[1]['hits']} hits) {most[0]:.3f} ms; "
+        f"median flush wall {float(np.median([w for w, _ in walls])):.3f} ms;"
+        f" peak device memory of a flush {max(peaks):.3f} GiB above live "
+        f"(all-miss flush 0: {peaks[0]:.3f})")
+    summarize(torch, "served estimates before the first ingest",
+              torch.tensor(served_est), torch.tensor(served_truth))
+    return counts, co, pool_q, pool_t, draws[-1]
+
+
+def phase_serving_times(torch, co, pool_q, pool_t, picks):
+    """Outside the counted run: the lookup's and ``query_lanes``' times at
+    the flush's shapes on the grown state, and profiles of an all-hit and an
+    all-miss flush."""
+    from repro_torch.cache import estimate_cache as C
+    from repro_torch.core import lsh
+    st = co.state
+    ix = st.index
+    dev = st.x.device
+    qs = torch.from_numpy(pool_q[picks]).to(dev)
+    taus = torch.from_numpy(pool_t[picks]).to(dev)
+    qcodes, ham = lsh.query_lanes(ix.params, qs, ix.bucket_codes,
+                                  ix.n_buckets)
+    qh, tk = C.query_hash(qs), C.tau_band(taus, 0.0)
+    live = torch.ones(qs.shape[0], dtype=torch.bool, device=dev)
+    lq_ms = cuda_ms(torch, lambda: lsh.query_lanes(
+        ix.params, qs, ix.bucket_codes, ix.n_buckets))
+    look = {flag: cuda_ms(torch, lambda: C.lookup(
+        co._cache, st.epochs, ham, ix.bucket_sizes, qcodes, qh, tk, live,
+        match_qhash=True, check_ingest=flag)) for flag in (False, True)}
+    log(f"serving times at ({qs.shape[0]}, {ix.n_tables}, "
+        f"{ix.bucket_codes.shape[1]}), cache {co._cache.size}: query_lanes "
+        f"{lq_ms:.4f} ms a flush; lookup {look[True]:.4f} ms with the ball "
+        f"check, {look[False]:.4f} ms without")
+    del ham
+    calls = [0]
+
+    def all_miss():
+        calls[0] += 1     # a new radius each call: every key is new
+        flush_requests(co, pool_q, pool_t * (1 + 1e-4 * calls[0]), picks)
+
+    phase_profile(torch, [
+        ("serving flush, all hits", lambda: flush_requests(
+            co, pool_q, pool_t, picks)),
+        ("serving flush, all misses", all_miss)])
+
+
+def insert_inputs(torch, g, s, n, nl, k, full):
+    """A random cache of ``s`` entries (all valid and referenced when
+    ``full``) and ``n`` lanes: keys of entries, new keys and repeats of
+    earlier lanes' keys, some lanes inactive."""
+    from repro_torch.cache import estimate_cache as C
+    dev = g.device
+
+    def ri(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+    flags = (torch.ones(s, dtype=torch.bool, device=dev) if full
+             else ri(0, 2, (s,)).bool() for _ in range(2))
+    cache = C.EstimateCache(
+        qcodes=ri(-2, 3, (s, nl, k)),
+        qhash=ri(0, 1 << 32, (s, 2), torch.int64),
+        tau_key=ri(0, 3, (s,)), snap_ball=ri(0, 1000, (s, nl)),
+        snap_params=ri(0, 3, (s,), torch.int64),
+        probed_k=ri(0, k + 1, (s, nl)),
+        est=torch.rand(s, generator=g, device=dev),
+        nvisited=ri(0, 5000, (s,)), valid=next(flags), ref=next(flags),
+        hand=ri(0, s, ()))
+    # half the lanes take an entry's key, the rest a new one; a quarter
+    # then repeat an earlier lane's key
+    src = ri(0, s, (n,), torch.int64)
+    new = ri(0, 2, (n,)).bool()
+    qc = torch.where(new[:, None, None], ri(-2, 3, (n, nl, k)),
+                     cache.qcodes[src])
+    qh = torch.where(new[:, None], ri(0, 1 << 32, (n, 2), torch.int64),
+                     cache.qhash[src])
+    tk = torch.where(new, ri(0, 3, (n,)), cache.tau_key[src])
+    rep = ri(0, 4, (n,)) == 0
+    prev = (torch.rand(n, generator=g, device=dev)
+            * torch.arange(n, device=dev)).long()
+    prev = torch.where(rep, prev, torch.arange(n, device=dev))
+    lanes = (qc[prev].contiguous(), qh[prev].contiguous(),
+             tk[prev].contiguous(), ri(0, 1000, (n, nl)),
+             torch.tensor(1, device=dev),
+             torch.rand(n, generator=g, device=dev), ri(0, 5000, (n,)),
+             ri(0, k + 1, (n, nl)), ri(0, 8, (n,)) > 0)
+    return cache, lanes
+
+
+def phase_cache_insert(torch, seed) -> dict:
+    """``cache_insert`` against its plain version (the reference's loop in
+    torch, on the CPU copy of the same inputs), ``torch.equal`` on every
+    field, at S = 1024 and 65,536 with 64 and 256 lanes (duplicate keys,
+    the full sweep of a cache whose ``ref`` bits are all set); wrapper and
+    device times beside the plain loop's on the card (and its launches)
+    and the bound. Returns the serving shape's result entry."""
+    from repro_torch.cache import estimate_cache as C
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(seed + 40)
+    nl, k = CFG_KW["n_tables"], CFG_KW["n_funcs"]
+    entry = 4 * nl * k + 16 + 4 + 4 * nl + 8 + 4 * nl + 4 + 4 + 2
+    res, err = None, 0.0
+    for s, n, full, match in ((SERVE_CACHE, SERVE_BATCH, False, True),
+                              (SERVE_CACHE, SERVE_BATCH, True, True),
+                              (SERVE_CACHE, 256, False, False),
+                              (1 << 16, SERVE_BATCH, False, True),
+                              (1 << 16, 256, True, True)):
+        cache, lanes = insert_inputs(torch, g, s, n, nl, k, full)
+        want_c = C.EstimateCache(*(t.to("cpu", copy=True) for t in cache))
+        want = ref.cache_insert(want_c, *(t.cpu() for t in lanes), match)
+        got_c = C.EstimateCache(*(t.clone() for t in cache))
+        got = ops.cache_insert(got_c, *lanes, match)
+        torch.cuda.synchronize()
+        est_err = float((got_c.est.cpu() - want_c.est).abs().max())
+        unequal = {name: int((a.cpu() != b).sum())
+                   for name, a, b in zip(C.EstimateCache._fields, got_c,
+                                         want_c) if name != "est"}
+        for name, a, b in zip(C.EstimateCache._fields, got_c, want_c):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"cache_insert (S={s}, n={n}): {name} "
+                                     f"differs from the plain version (max "
+                                     f"|est| diff {est_err}, unequal "
+                                     f"integer elements {unequal})")
+        if int(got) != int(want):
+            raise AssertionError(f"cache_insert (S={s}, n={n}): evictions "
+                                 f"{int(got)} != {int(want)}")
+        err = max(err, est_err)
+        # the bytes this run's data needs: valid and tau_key of every entry;
+        # the codes of entries whose tau key is an active lane's (or that a
+        # lane wrote), the fingerprints (with match_qhash) of those whose
+        # codes match too; ref up to each victim (the bits cleared, the
+        # victims); the active lanes; each written entry and cleared bit
+        act = lanes[-1]
+        qc, tk = lanes[0][act], lanes[2][act]
+        changed = torch.zeros(s, dtype=torch.bool, device="cuda")
+        for a, b in zip(got_c[:9], cache[:9]):      # ref apart
+            if a.dim():
+                changed |= (a != b).reshape(s, -1).any(1)
+        tau_hit = ((cache.valid & torch.isin(cache.tau_key, tk)) | changed)
+        code_hit = torch.zeros(s, dtype=torch.bool, device="cuda")
+        for i in range(0, s, 4096):
+            c = cache.qcodes[i:i + 4096].reshape(-1, 1, nl * k)
+            code_hit[i:i + 4096] = (
+                (c == qc.reshape(1, -1, nl * k)).all(-1)
+                & (cache.tau_key[i:i + 4096, None] == tk[None])).any(1)
+        code_hit = (code_hit & cache.valid & tau_hit) | changed
+        cleared = int((cache.ref & ~got_c.ref).sum())
+        parts = {
+            "valid, tau_key": 5 * s,
+            "codes": 4 * nl * k * int(tau_hit.sum()),
+            "qhash": 16 * int(code_hit.sum()) if match else 0,
+            "ref swept": cleared + int(changed.sum()),
+            "lanes": int(act.sum()) * sum(
+                t[0].numel() * t.element_size() for t in lanes[:-1]
+                if t.dim()) + n + 8,
+            "written": int(changed.sum()) * entry + cleared + 8}
+        nbytes = sum(parts.values())
+        iters = 20
+        fresh = [C.EstimateCache(*(t.clone() for t in cache))
+                 for _ in range(2 * iters + 1)]
+        it = iter(fresh)
+        ms = cuda_ms(torch, lambda: ops.cache_insert(next(it), *lanes, match),
+                     iters=iters)
+        dev_us = kernel_device_us(
+            torch, lambda: ops.cache_insert(next(it), *lanes, match),
+            "cache_insert_kernel", iters=iters - 1)
+        plain = [C.EstimateCache(*(t.clone() for t in cache))
+                 for _ in range(4)]
+        pit = iter(plain)
+        plain_ms = cuda_ms(torch, lambda: ref.cache_insert(
+            next(pit), *lanes, match), iters=3)
+        host, devk = launches_of(torch, lambda: ref.cache_insert(
+            C.EstimateCache(*(t.clone() for t in cache)), *lanes, match))
+        b = bound_ms(nbytes, 0)
+        log(f"cache_insert (S={s}, {n} lanes, {int(act.sum())} active,"
+            f" {'full, every ref set' if full else 'random valid/ref'}, "
+            f"match_qhash={match}): torch.equal to the plain version on "
+            f"every field (max |est| diff {est_err}, unequal integer "
+            f"elements {sum(unequal.values())}); {int(got)} evictions, "
+            f"{int(changed.sum())} entries written, {cleared} ref bits "
+            f"cleared; wrapper {ms * 1e3:.2f} us (CUDA events), device "
+            f"{dev_us:.2f} us; plain loop on the card {plain_ms:.3f} ms, "
+            f"{host} launch calls ({devk} device kernels); bound "
+            f"{b[0] * 1e3:.4f} us ({b[1]}, {nbytes} bytes: "
+            f"{json.dumps(parts)})")
+        del fresh, plain
+        if res is None:
+            res = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=None)
+    res["max_abs_err"] = err
+    return res
+
+
+def phase_serving_agreement(torch, cfg, seed):
+    """The same stream at reuse_tol 0.25 through a CPU coalescer (plain
+    versions) and a GPU one with the same round keys, on a bridged small
+    state, with an in-capacity ingest of midpoints: equal provenance,
+    rings, sample counts and ``cache_stats``, estimates within rtol 1e-6,
+    every cache field equal (``est`` within rtol 1e-6). Queries, radii
+    and ingest rows at a hash boundary, a tau^2 boundary or a band edge
+    are left out beforehand."""
+    import math
+    import numpy as np
+    from repro_torch import bridge
+    from repro_torch.cache import estimate_cache as C
+    from repro_torch.core import estimator as E
+    from repro_torch.data import vectors
+    from repro_torch.serve.coalescer import CardinalityCoalescer
+    tol = 0.25
+    g = torch.Generator().manual_seed(seed + 30)
+    x = vectors.make_corpus(g, 8192, 32)
+    cpu = E.build(x, cfg, g, capacity=2 ** 14, device="cpu",
+                  track_epochs=True)
+    gpu = bridge.state_from_numpy(bridge.state_to_numpy(cpu), "cuda")
+    p = cpu.index.params
+    perm = torch.randperm(8192, generator=g)
+    mids = 0.5 * (x[perm[:1024]] + x[perm[1024:2048]])
+    mids = mids[~near_integer(torch, mids, p.a, p.b, p.w).any(1)][:512]
+    live = torch.cat([x, mids])
+    qs, taus, _ = vectors.paper_query_workload(g, x, 48, n_taus=6)
+    d2 = ((live.double()[None] - qs.double()[:, None]) ** 2).sum(-1)
+    ok = ~near_integer(torch, qs, p.a, p.b, p.w).any(1)
+    pool = []
+    for qi in torch.nonzero(ok).squeeze(1).tolist():
+        for t in taus[qi, ::2].tolist():
+            band = math.log(t) / math.log1p(tol)
+            if abs(band - round(band)) > 1e-5 and not (
+                    (d2[qi] - t * t).abs() <= MARGIN * t * t).any():
+                pool.append((qi, t))
+    pool = pool[:36]
+    if len(pool) < 24:
+        raise AssertionError("too few tie-free serving pairs")
+    pool_q = qs[[q for q, _ in pool]].numpy()
+    pool_t = np.array([t for _, t in pool], np.float32)
+    draws = zipf_stream(np, seed + 31, len(pool), 10, 16)
+
+    def keys(i, n):
+        return E.draw_round_keys(torch.Generator().manual_seed(seed + 100 + i),
+                                 n, cfg.n_tables, "cpu")
+
+    cos = [CardinalityCoalescer(st, cfg, max_batch=16, cache_size=32,
+                                reuse_tol=tol, round_keys=keys)
+           for st in (cpu, gpu)]
+    for f in range(10):
+        if f == 4:
+            for co in cos:
+                co.ingest(mids.numpy())
+                co.apply_ingest()
+            if not torch.equal(cos[0].state.index.params.w,
+                               cos[1].state.index.params.w.cpu()):
+                raise AssertionError("serving agreement: W after the "
+                                     "ingest differs between CPU and GPU")
+        got, want = (flush_requests(co, pool_q, pool_t, draws[f])
+                     for co in cos[::-1])
+        for a, b in zip(got, want):
+            if a.provenance != b.provenance or (a.probed_k is None) != (
+                    b.probed_k is None) or (a.probed_k is not None and (
+                    not np.array_equal(a.probed_k, b.probed_k)
+                    or a.nvisited != b.nvisited)):
+                raise AssertionError(f"serving agreement, flush {f}: "
+                                     "provenance or probe stats differ")
+            if not math.isclose(a.est, b.est, rel_tol=1e-6, abs_tol=1e-6):
+                raise AssertionError(f"serving agreement, flush {f}: "
+                                     f"estimates {a.est} != {b.est}")
+    if cos[0].cache_stats != cos[1].cache_stats:
+        raise AssertionError("serving agreement: cache_stats differ")
+    gc, wc = (bridge.cache_to_numpy(co._cache) for co in cos[::-1])
+    for k in C.EstimateCache._fields:
+        if k == "est":
+            np.testing.assert_allclose(gc[k], wc[k], rtol=1e-6, atol=1e-6)
+        elif not np.array_equal(gc[k], wc[k]):
+            raise AssertionError(f"serving agreement: cache field {k} "
+                                 "differs")
+    if cos[0].cache_stats["hits"] == 0:
+        raise AssertionError("serving agreement: no hit")
+    log(f"serving agreement (reuse_tol {tol}): {len(pool)} pairs, 10 "
+        f"flushes of 16, {len(mids)} ingested; CPU and GPU coalescers agree "
+        f"(provenance, rings, samples, every cache field); cache_stats "
+        f"{json.dumps(cos[1].cache_stats)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1428,6 +2005,14 @@ def main(argv=None) -> int:
     del state
     torch.cuda.empty_cache()
     phase_small_agreement(torch, cfg, args.seed)
+    serve_counts, co, pool_q, pool_t, picks = phase_serving(
+        torch, corpus, cfg, args.seed)
+    phase_serving_times(torch, co, pool_q, pool_t, picks)
+    del co
+    torch.cuda.empty_cache()
+    res["cache_insert"] = phase_cache_insert(torch, args.seed)
+    phase_serving_agreement(torch, cfg, args.seed)
+    torch.cuda.empty_cache()
     pq_counts, pstate, sstate = phase_pq_main_path(torch, corpus, qs, taus,
                                                    args.seed)
     res.update(phase_adc_kernels(torch, sstate, qs, taus))
@@ -1476,10 +2061,11 @@ def main(argv=None) -> int:
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the
-    # reference)
+    # reference), cache_insert's from the serving run
     counts.update({k: sum(w[k] for w in pq_counts.values())
                    for k in ("adc_rows", "adc_rows_q8", "adc_batch",
                              "adc_batch_q8")})
+    counts["cache_insert"] = serve_counts["cache_insert"]
     kernels = [dict(name=k, route="cuda",
                     source=f"src/repro_torch/kernels/csrc/{SOURCES[k]}",
                     replaces=REPLACES[k], launches=counts[k],

@@ -4,16 +4,23 @@ Keys are the reference's field names: ``params.a``, ``params.b``,
 ``params.w``, ``raw``, ``codes``, ``order``, ``bucket_codes``,
 ``bucket_starts``, ``bucket_sizes``, ``n_buckets``, ``n_valid`` and ``x``;
 a PQ state adds ``pq.centroids``, ``pq.codes`` (uint8), ``pq.counts``,
-``pq.resid``, ``pq.n_valid`` and, with 4-bit codes, ``pq.packed``. Dtypes
-are kept exactly (int32 stays int32, uint8 stays uint8). This is how the
-reference's "weights" — its LSH functions, built index and codebooks —
-reach the port.
+``pq.resid``, ``pq.n_valid`` and, with 4-bit codes, ``pq.packed``; a state
+with ingest epochs adds ``epochs.params_epoch`` and ``epochs.n_ingested``
+(numpy uint32 both ways; int64 in the port). Dtypes are kept exactly
+(int32 stays int32, uint8 stays uint8). This is how the reference's
+"weights" — its LSH functions, built index and codebooks — reach the port.
+
+:func:`cache_to_numpy` / :func:`cache_from_numpy` carry an estimate cache
+the same way, field by field under the reference's names and dtypes
+(``qhash`` and ``snap_params`` uint32, ``valid`` and ``ref`` bool).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.cache.epochs import EpochState
+from repro_torch.cache.estimate_cache import EstimateCache
 from repro_torch.core import lsh, pq as pqmod
 from repro_torch.core.estimator import ProberState
 
@@ -22,6 +29,17 @@ _INDEX_FIELDS = ("raw", "codes", "order", "bucket_codes", "bucket_starts",
 KEYS = ("params.a", "params.b", "params.w", *_INDEX_FIELDS, "x")
 _PQ_FIELDS = ("centroids", "codes", "counts", "resid", "n_valid")
 PQ_KEYS = tuple(f"pq.{k}" for k in _PQ_FIELDS)    # plus optional pq.packed
+EPOCH_KEYS = tuple(f"epochs.{k}" for k in EpochState._fields)
+_UINT32 = ("qhash", "snap_params")       # cache fields held in int64
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    """numpy → torch, uint32 widened to int64 (torch keeps uint32 values
+    in int64 here)."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.astype(np.int64)
+    return torch.tensor(a, device=device)
 
 
 def state_from_numpy(d: dict[str, np.ndarray], device) -> ProberState:
@@ -30,7 +48,7 @@ def state_from_numpy(d: dict[str, np.ndarray], device) -> ProberState:
         raise KeyError(f"missing state fields: {missing}")
 
     def t(k):
-        return torch.tensor(np.asarray(d[k]), device=device)
+        return _to_torch(d[k], device)
 
     params = lsh.LSHParams(t("params.a"), t("params.b"), t("params.w"))
     index = lsh.LSHIndex(params, *(t(k) for k in _INDEX_FIELDS))
@@ -41,7 +59,10 @@ def state_from_numpy(d: dict[str, np.ndarray], device) -> ProberState:
             raise KeyError(f"missing PQ fields: {missing}")
         pq = pqmod.PQIndex(*(t(k) for k in PQ_KEYS),
                            packed=t("pq.packed") if "pq.packed" in d else None)
-    return ProberState(index=index, x=t("x"), pq=pq)
+    epochs = None
+    if any(k.startswith("epochs.") for k in d):
+        epochs = EpochState(*(t(k) for k in EPOCH_KEYS))
+    return ProberState(index=index, x=t("x"), pq=pq, epochs=epochs)
 
 
 def state_to_numpy(state: ProberState) -> dict[str, np.ndarray]:
@@ -53,4 +74,24 @@ def state_to_numpy(state: ProberState) -> dict[str, np.ndarray]:
         out.update({f"pq.{k}": getattr(state.pq, k) for k in _PQ_FIELDS})
         if state.pq.packed is not None:
             out["pq.packed"] = state.pq.packed
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    if state.epochs is not None:
+        out.update({k: v.cpu().numpy().astype(np.uint32)
+                    for k, v in zip(EPOCH_KEYS, state.epochs)})
+    return out
+
+
+def cache_from_numpy(d: dict[str, np.ndarray], device) -> EstimateCache:
+    missing = [k for k in EstimateCache._fields if k not in d]
+    if missing:
+        raise KeyError(f"missing cache fields: {missing}")
+    return EstimateCache(*(_to_torch(d[k], device)
+                           for k in EstimateCache._fields))
+
+
+def cache_to_numpy(cache: EstimateCache) -> dict[str, np.ndarray]:
+    out = {}
+    for k, v in zip(EstimateCache._fields, cache):
+        a = v.detach().cpu().numpy()
+        out[k] = a.astype(np.uint32) if k in _UINT32 else a
+    return out

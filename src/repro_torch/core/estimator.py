@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.cache import epochs as cache_epochs
 from repro_torch.core import lsh, pq as pqmod, prober, updates
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
@@ -30,7 +31,10 @@ class ProberState(NamedTuple):
     index: lsh.LSHIndex
     x: torch.Tensor                  # (C, d) float32; rows >= n_valid pad
     pq: Optional[pqmod.PQIndex] = None   # None unless cfg.use_pq
-    epochs: Optional[object] = None  # estimate-cache epochs: later slice
+    epochs: Optional[cache_epochs.EpochState] = None
+                                     # the estimate cache's ingest epochs;
+                                     # None unless attached (track_epochs /
+                                     # attach_epochs); update bumps them
 
     @property
     def n_valid(self) -> torch.Tensor:
@@ -53,12 +57,12 @@ def resolve_device(device) -> torch.device:
 def build(x: torch.Tensor, cfg: ProberConfig,
           generator: torch.Generator | None = None,
           params: lsh.LSHParams | None = None, capacity: int | None = None,
-          device="cuda") -> ProberState:
+          device="cuda", track_epochs: bool = False) -> ProberState:
     """Offline build. With ``capacity`` the state is capacity-padded: arrays
     of ``capacity`` rows with ``x.shape[0]`` live, so an :func:`update` that
     fits keeps every shape. ``params`` reuses given hash functions;
     otherwise they are drawn from ``generator``, before the k-means initial
-    rows."""
+    rows. ``track_epochs`` attaches the estimate cache's ingest epochs."""
     dev = resolve_device(device)
     x = torch.as_tensor(x).to(dev, torch.float32).contiguous()
     if params is not None:
@@ -78,7 +82,14 @@ def build(x: torch.Tensor, cfg: ProberConfig,
         pq = pqmod.fit(x, cfg, generator)
         if capacity is not None:
             pq = pqmod.grow(pq, capacity)
-    return ProberState(index=index, x=x_all, pq=pq)
+    state = ProberState(index=index, x=x_all, pq=pq)
+    return attach_epochs(state) if track_epochs else state
+
+
+def attach_epochs(state: ProberState) -> ProberState:
+    """Attach fresh ingest epochs (both counters 0), so that every later
+    :func:`update` maintains them."""
+    return state._replace(epochs=cache_epochs.init_epochs(state.x.device))
 
 
 def draw_round_keys(generator: torch.Generator, nq: int, nl: int,
@@ -159,9 +170,8 @@ def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
     """§5 data update: Alg. 7 for the LSH index and, on the PQ path, Alg. 8
     for the PQ index. In capacity, every shape is kept; otherwise capacity
     doubles first. ``n_valid`` is an optional host-side hint of the live
-    count, which saves reading it from the device."""
-    if state.epochs is not None:
-        raise NotImplementedError("epoch ingest is not ported yet")
+    count, which saves reading it from the device. Attached epochs count
+    the points and, when Alg. 7 moved W, a new params generation."""
     nn = x_new.shape[0]
     nv = int(state.index.n_valid.item()) if n_valid is None else int(n_valid)
     cap = state.x.shape[0]
@@ -172,7 +182,9 @@ def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
     index = updates._lsh_ingest(state.index, x_pad, n_new, cfg, nv)
     pq = None if state.pq is None else \
         updates._pq_ingest(state.pq, x, x_pad, n_new, nv)
-    return ProberState(index=index, x=x, pq=pq)
+    ep = None if state.epochs is None else updates._epoch_ingest(
+        state.epochs, index, state.index.params.w, n_new)
+    return ProberState(index=index, x=x, pq=pq, epochs=ep)
 
 
 def true_cardinality(x: torch.Tensor, q: torch.Tensor, tau,

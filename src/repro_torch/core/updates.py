@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.cache import epochs as cache_epochs
 from repro_torch.core import lsh, pq as pqmod
 from repro_torch.core.config import ProberConfig
 
@@ -64,6 +65,16 @@ def _lsh_ingest(index: lsh.LSHIndex, x_new: torch.Tensor, n_new: int,
                         bucket_sizes=sizes, n_buckets=nb,
                         n_valid=torch.tensor(nv2, dtype=torch.int32,
                                              device=raw_all.device))
+
+
+def _epoch_ingest(ep: cache_epochs.EpochState, index: lsh.LSHIndex,
+                  old_w: torch.Tensor, n_new: int) -> cache_epochs.EpochState:
+    """Fold one ingest into the cache's epoch counters: ``n_new`` points,
+    and a new params generation iff Alg. 7 moved any width. The compare
+    stays on the device; it is exact because ``normalize_w`` reproduces W
+    bit for bit when no projection extreme moves."""
+    w_changed = (index.params.w != old_w).any()
+    return cache_epochs.ingest_bump(ep, n_new, w_changed)
 
 
 def _pad_batch(x_new: torch.Tensor) -> tuple[torch.Tensor, int]:

@@ -22,7 +22,7 @@ LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
                             "l2dist_general": 0, "l2dist_rows": 0,
                             "adc_rows": 0, "adc_rows_q8": 0, "adc_batch": 0,
                             "adc_batch_q8": 0, "slab_qualify": 0,
-                            "central_qualify": 0}
+                            "central_qualify": 0, "cache_insert": 0}
 
 
 def reset_launches() -> None:
@@ -676,3 +676,72 @@ def central_qualify(qcodes: torch.Tensor, tid: torch.Tensor,
                 nb, n_points, k, d, budget, mode, cb, m, kc, packed, align,
                 vec, splits, smem)
     return qualified, seen, total
+
+
+# ---- the estimate cache's CLOCK insert -------------------------------------
+
+# the cache's fields as cache_insert takes them: name, dtype and the shape
+# after the entry axis S ("l" and "k" stand for L and K)
+_CACHE_FIELDS = (("qcodes", torch.int32, ("l", "k")),
+                 ("qhash", torch.int64, (2,)), ("tau_key", torch.int32, ()),
+                 ("snap_ball", torch.int32, ("l",)),
+                 ("snap_params", torch.int64, ()),
+                 ("probed_k", torch.int32, ("l",)),
+                 ("est", torch.float32, ()), ("nvisited", torch.int32, ()),
+                 ("valid", torch.bool, ()), ("ref", torch.bool, ()))
+
+
+def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
+                 tau_keys: torch.Tensor, balls: torch.Tensor,
+                 params_epoch: torch.Tensor, ests: torch.Tensor,
+                 nvisited: torch.Tensor, probed_k: torch.Tensor,
+                 active: torch.Tensor, match_qhash: bool) -> torch.Tensor:
+    """The CLOCK insert of n probed lanes into ``cache`` (an
+    ``EstimateCache``: (S, L, K) codes, (S, 2) int64 fingerprints, ...,
+    a 0-d int32 hand), in lane order and in place: ``qcodes`` (n, L, K)
+    int32, ``qhash`` (n, 2) int64, ``tau_keys`` (n,) int32, ``balls`` and
+    ``probed_k`` (n, L) int32, ``params_epoch`` 0-d int64, ``ests`` (n,)
+    float32, ``nvisited`` (n,) int32, ``active`` (n,) bool. Returns the
+    evictions of live entries, a 0-d int32 tensor. One launch of one block
+    on the card (:func:`ref.cache_insert` is its plain version)."""
+    lanes = (qcodes, qhash, tau_keys, balls, params_epoch, ests, nvisited,
+             probed_k, active)
+    if _on_cpu(*cache, *lanes):
+        return ref.cache_insert(cache, *lanes, match_qhash)
+    s, nl, k = cache.qcodes.shape
+    n = qcodes.shape[0]
+    dims = {"l": nl, "k": k}
+    for name, dtype, tail in _CACHE_FIELDS:
+        shape = (s,) + tuple(dims.get(d, d) for d in tail)
+        _check(getattr(cache, name), name, dtype, len(shape))
+        if tuple(getattr(cache, name).shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got "
+                             f"{tuple(getattr(cache, name).shape)}")
+    _check(cache.hand, "hand", torch.int32, 0)
+    _check(params_epoch, "params_epoch", torch.int64, 0)
+    for t, nm, dtype, shape in (
+            (qcodes, "qcodes", torch.int32, (n, nl, k)),
+            (qhash, "qhash", torch.int64, (n, 2)),
+            (tau_keys, "tau_keys", torch.int32, (n,)),
+            (balls, "balls", torch.int32, (n, nl)),
+            (ests, "ests", torch.float32, (n,)),
+            (nvisited, "nvisited", torch.int32, (n,)),
+            (probed_k, "probed_k", torch.int32, (n, nl)),
+            (active, "active", torch.bool, (n,))):
+        _check(t, nm, dtype, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{nm}: expected {shape}, got {tuple(t.shape)}")
+    if not 0 < s <= 1 << 16 or n > 1 << 16:
+        raise ValueError(f"cache_insert takes 1..65536 entries and at most "
+                         f"65536 lanes, got S={s}, n={n}")
+    if not n:
+        return torch.zeros((), dtype=torch.int32, device=qcodes.device)
+    n_evicted = torch.empty((), dtype=torch.int32, device=qcodes.device)
+    _launch("cache_insert", "cache_insert",
+            *(getattr(cache, f).data_ptr() for f, _, _ in _CACHE_FIELDS),
+            cache.hand.data_ptr(), qcodes.data_ptr(), qhash.data_ptr(),
+            tau_keys.data_ptr(), balls.data_ptr(), params_epoch.data_ptr(),
+            ests.data_ptr(), nvisited.data_ptr(), probed_k.data_ptr(),
+            active.data_ptr(), n_evicted.data_ptr(), s, n, nl, nl * k,
+            int(match_qhash))
+    return n_evicted

@@ -271,3 +271,57 @@ def gather_ring_from_cum(view, tid, cum, budget: int):
     valid = slots < total[:, None]
     pos = torch.where(valid, pos, 0).clamp(0, view.order.shape[1] - 1)
     return view.order[tid[:, None], pos.long()], valid, total
+
+
+# ---- the estimate cache's CLOCK insert ------------------------------------
+
+def cache_insert(cache, qcodes, qhash, tau_keys, balls, params_epoch, ests,
+                 nvisited, probed_k, active, match_qhash: bool):
+    """The reference's insert loop (``repro/cache/estimate_cache.py``
+    ``insert``), lane by lane in torch, with no host read: the plain
+    version of ``cache_insert`` (``csrc/cache.cu``). Updates the fields of
+    ``cache`` (an ``EstimateCache``) in place, ``hand`` too, and returns
+    the evictions of live entries as a 0-d int32 tensor.
+
+    For each active lane: the first valid entry whose key (``tau_key``,
+    all (L, K) codes and, with ``match_qhash``, both fingerprint words)
+    equals the lane's is overwritten; without one, the CLOCK hand sweeps
+    from ``hand + 1`` to the first entry that is not both valid and
+    referenced, clearing ``ref`` on every entry it passed (on all of them
+    when none qualifies, taking the first), and that victim is written.
+    A written entry is valid with ``ref`` clear; the hand moves only on an
+    eviction."""
+    c = cache
+    s = c.est.shape[0]
+    dev = c.est.device
+    pos = torch.arange(s, device=dev)
+    n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+    for i in range(qcodes.shape[0]):
+        m = c.valid & (c.tau_key == tau_keys[i]) & \
+            (c.qcodes == qcodes[i][None]).flatten(1).all(-1)
+        if match_qhash:
+            m = m & (c.qhash == qhash[i][None]).all(-1)
+        use_existing = m.any()
+        order = (c.hand.long() + 1 + pos) % s
+        claimable = ~(c.ref[order] & c.valid[order])
+        found = claimable.any()
+        vpos = torch.argmax(claimable.to(torch.int32))
+        victim = order[vpos.reshape(1)]
+        passed = (pos < vpos) | ~found
+        slot = torch.where(use_existing, torch.argmax(m.to(torch.int32)),
+                           victim)              # (1,): no host read
+        do = active[i]
+        do_evict = do & ~use_existing
+        n_ev += (do_evict & c.valid[victim][0]).to(torch.int32)
+        c.ref[order] = c.ref[order] & ~(passed & do_evict)
+        for field, v in ((c.qcodes, qcodes[i]), (c.qhash, qhash[i]),
+                         (c.tau_key, tau_keys[i]), (c.snap_ball, balls[i]),
+                         (c.snap_params, params_epoch),
+                         (c.probed_k, probed_k[i]), (c.est, ests[i]),
+                         (c.nvisited, nvisited[i])):
+            field[slot] = torch.where(do, v, field[slot])
+        c.valid[slot] = c.valid[slot] | do
+        c.ref[slot] = c.ref[slot] & ~do
+        c.hand.copy_(torch.where(do_evict, victim[0].to(torch.int32),
+                                 c.hand))
+    return n_ev

@@ -22,6 +22,9 @@ def jax_state_numpy(state) -> dict:
             d[f"pq.{k}"] = getattr(state.pq, k)
         if state.pq.packed is not None:
             d["pq.packed"] = state.pq.packed
+    if state.epochs is not None:
+        d["epochs.params_epoch"] = state.epochs.params_epoch
+        d["epochs.n_ingested"] = state.epochs.n_ingested
     return {k: np.asarray(v) for k, v in d.items()}
 
 
