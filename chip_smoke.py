@@ -99,8 +99,35 @@ S3. Small-input agreement of the serving path: the same stream at
     reuse_tol 0.25 through a CPU and a GPU coalescer with the same round
     keys.
 
-Ends with a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line. Exits non-zero, printing no result, without CUDA or without the
+Then, after the PQ path, this slice's three phases:
+
+N1. The paper's neighbor table (Alg. 6) of both tables of the exact 1M
+    state at capacity 2^20 (the main path's build), at a table capacity
+    of next_pow2(max n_buckets) and M = 6: ``neighbor_dists``
+    ``torch.equal`` to its plain version, timed beside ``torch.cdist(p=0)``
+    and its byte and compare bounds; ``ring(i, k)`` equal to
+    ``hamming_to_buckets(...) == k`` for 64 buckets a table, k = 1..6;
+    then points anchored on live rows (4,096, more until every table
+    gains a bucket) ingested with W kept, and Alg. 9's update ``torch.equal`` to
+    a fresh build of the old codes followed by the new ones, timed against
+    the build. ``neighbor_dists`` launches are counted over the builds and
+    updates.
+B1. The baselines on the same state: 64 paper-protocol queries x 12
+    targets through the Dynamic Prober (exact), Sampling 1 % (10,000
+    rows a pair; ``l2dist_rows`` launches counted over this run alone and
+    the kernel held against its plain version there) and the MLP trained
+    on 60 % of the queries; q-errors, ms a pair, training seconds.
+D1. The five paper corpora (``CORPORA``) at their own widths (128, 300,
+    300, 960, 1770), each at N = 1M: ``load``, the exact build, one
+    ``estimate_batch`` of 64 queries (q-error, wall ms, peak memory), and
+    which ``l2dist`` kernel the workload took (the general one at d = 960
+    and 1770, as ``ops.l2dist_plan`` decides); Sampling 1 % at d = 1770,
+    and the small-input CPU-vs-GPU agreement at d = 1770 (the kernels'
+    paths for rows that are not 16-byte pieces).
+
+Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
+(thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
+non-zero, printing no result, without CUDA or without the
 package beside it.
 """
 from __future__ import annotations
@@ -141,7 +168,16 @@ PROBER_PQ_KW = dict(CFG_KW, pq_exact_rings=2, **PQ_KW)
 SERVE_KW = dict(n_tables=1, n_funcs=12, ring_budget=1024, central_budget=512,
                 chunk=512, max_visit=2048, pq_exact_rings=0,
                 pq_exact_central=False, pq_int8_lut=True, **PQ_KW)
+# N1: the anchored ingest (4,096 and 16,384 points made no bucket in some
+# table on this seed), and the buckets a table whose rings are checked
+N1_INGEST, N1_RINGS = 65536, 64
+# D1: the width whose corpus also runs Sampling 1 %, and the widths of the
+# CPU-vs-GPU small-input agreement (d = 128 runs with the exact path)
+D1_SAMPLING_DIM = 1770
+D1_AGREE_DIMS = (300, 960, 1770)
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+# H100 SXM: 132 SMs x 64 INT32 lanes x 1.98 GHz (Hopper white paper)
+INT32_OP_S = 132 * 64 * 1.98e9
 FP32_FLOP_S = 67e12            # H100 SXM fp32 outside the tensor cores
 FP32_LANES_PER_SM = 128        # Hopper: 4 schedulers x 32 FP32 lanes
 MARGIN = 1e-5
@@ -161,7 +197,9 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
                                "src/repro/kernels/adc.py:67, "
                                "src/repro/kernels/l2dist.py:41",
             "cache_insert": "src/repro/cache/estimate_cache.py:166 (insert, "
-                            "a jax.lax.fori_loop; no pallas_call)"}
+                            "a jax.lax.fori_loop; no pallas_call)",
+            "neighbor_dists": "src/repro/core/neighbors.py:26 "
+                              "(_pairwise_hamming, jnp; no pallas_call)"}
 # the kernels every estimator path launches, and the ones they replaced
 # there (still built and held against their plain versions)
 PATH_KERNELS = ("query_lanes", "slab_qualify", "central_qualify")
@@ -173,7 +211,8 @@ SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
            "l2dist_rows": "l2dist.cu", "adc_rows": "adc.cu",
            "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
            "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu",
-           "central_qualify": "slab.cu", "cache_insert": "cache.cu"}
+           "central_qualify": "slab.cu", "cache_insert": "cache.cu",
+           "neighbor_dists": "neighbors.cu"}
 
 def log(*a):
     print(*a, flush=True)
@@ -683,7 +722,8 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
 KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "query_lanes_kernel",
                 "l2dist_kernel", "l2dist_tiled_kernel", "l2dist_rows_kernel",
                 "adc_rows_kernel", "adc_batch_kernel", "slab_qualify_kernel",
-                "central_qualify_kernel", "cache_insert_kernel")
+                "central_qualify_kernel", "cache_insert_kernel",
+                "neighbor_dists_kernel")
 LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
 
 
@@ -1092,7 +1132,7 @@ def check_pq_fit(torch, x, cfg, g):
         raise AssertionError("PQ fit on the card departs from the CPU's")
 
 
-def phase_small_agreement(torch, cfg, seed, tag="exact"):
+def phase_small_agreement(torch, cfg, seed, tag="exact", dim=32):
     """The same index, queries and round keys on the CPU (plain versions)
     and on the GPU (kernels): equal ring depths and sample counts, equal
     estimates to rtol 1e-5. Queries whose hash values or distances sit
@@ -1102,14 +1142,15 @@ def phase_small_agreement(torch, cfg, seed, tag="exact"):
     from repro_torch.core import estimator as E
     from repro_torch.data import vectors
     g = torch.Generator().manual_seed(seed + 2)
-    x = vectors.make_corpus(g, 8192, 32)
+    x = vectors.make_corpus(g, 8192, dim)
     cpu = E.build(x, cfg, g, capacity=2 ** 14, device="cpu")
     gpu = bridge.state_from_numpy(bridge.state_to_numpy(cpu), "cuda")
     qs, taus, _ = vectors.paper_query_workload(g, x, 48, n_taus=6)
     taus = taus[torch.arange(48), torch.arange(48) % taus.shape[1]]
     p = cpu.index.params
     ok_hash = ~near_integer(torch, qs, p.a, p.b, p.w).any(1)
-    d2 = ((x.double()[None] - qs.double()[:, None]) ** 2).sum(-1)
+    d2 = torch.stack([((x.double() - q) ** 2).sum(-1)
+                      for q in qs.double()])
     t2 = (taus.double() ** 2)[:, None]
     ok_tau = ~((d2 - t2).abs() <= MARGIN * t2).any(1)
     if cfg.use_pq:
@@ -1961,6 +2002,370 @@ def phase_serving_agreement(torch, cfg, seed):
         f"{json.dumps(cos[1].cache_stats)}")
 
 
+# ---- N1, B1, D1: the neighbor table, the baselines, the paper corpora ----
+
+def padded_codes(torch, bucket_codes, cap):
+    """(cap, K) int32: the first ``cap`` rows of one table's bucket codes,
+    sentinel-padded where the table has fewer rows."""
+    from repro_torch.core import lsh
+    out = torch.full((cap, bucket_codes.shape[-1]), lsh.CODE_SENTINEL,
+                     dtype=torch.int32, device=bucket_codes.device)
+    n = min(cap, bucket_codes.shape[0])
+    out[:n] = bucket_codes[:n]
+    return out
+
+
+def new_codes_last(torch, old, new):
+    """Alg. 9's ``codes_all``: the old codes (n_old, K) first, then the
+    rows of ``new`` (the grown index's bucket codes, re-sorted) that are not
+    among them. Every old code must still be a bucket."""
+    both = torch.cat([old, new])
+    _, inv = torch.unique(both, dim=0, return_inverse=True)
+    inv_old, inv_new = inv[:old.shape[0]], inv[old.shape[0]:]
+    if not torch.isin(inv_old, inv_new).all():
+        raise AssertionError("an old bucket code vanished in the ingest")
+    return torch.cat([old, new[~torch.isin(inv_new, inv_old)]])
+
+
+def phase_neighbors(torch, state, cfg, seed):
+    """N1: the paper's neighbor table (Alg. 6) of both tables of the exact
+    1M state at capacity 2^20, at a table capacity of next_pow2(max
+    n_buckets) and M = ``cfg.table_max_dist``; ``neighbor_dists`` against
+    its plain version and ``torch.cdist(p=0)``; the rings against the
+    online ones; then an ingest of points anchored on live rows (W kept,
+    new buckets in every table) and Alg. 9's update against a fresh
+    build. Launch counts are zeroed just before the builds and read just
+    after the updates.
+    Returns the kernel's result entry and its launches."""
+    from repro_torch.core import estimator as E, neighbors
+    from repro_torch.core.updates import next_pow2
+    from repro_torch.kernels import ops, ref
+    dev = state.x.device
+    ix = state.index
+    nl, k, m = ix.n_tables, ix.n_funcs, cfg.table_max_dist
+    nbs = [int(v) for v in ix.n_buckets.tolist()]
+    cap = next_pow2(max(nbs))
+    codes = [padded_codes(torch, ix.bucket_codes[t], cap) for t in range(nl)]
+    log(f"N1 neighbor table: buckets {nbs}, table capacity {cap}, K = {k}, "
+        f"M = {m}")
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    # the ingest first: it reads the state, not the tables
+    grown = E.update(state, anchored_rows(torch, state, g, N1_INGEST), cfg)
+    if not torch.equal(grown.index.params.w, ix.params.w):
+        raise AssertionError("the anchored ingest moved W")
+    nbs2 = [int(v) for v in grown.index.n_buckets.tolist()]
+    log(f"N1 ingest of {N1_INGEST} anchored points: W kept, buckets "
+        f"{nbs} -> {nbs2} (+{[b - a for a, b in zip(nbs, nbs2)]})")
+    if not all(b > a for a, b in zip(nbs, nbs2)):
+        raise AssertionError("the ingest made no new bucket in some table")
+    cap2 = next_pow2(max(nbs2))
+    codes_all = [padded_codes(torch, new_codes_last(
+        torch, codes[t][:nbs[t]], grown.index.bucket_codes[t, :nbs2[t]]),
+        cap2) for t in range(nl)]
+    del grown
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    tables, t_build = timed(torch, lambda: [
+        neighbors.build(codes[t], nbs[t], m) for t in range(nl)])
+    built = [tb.dists.clone() for tb in tables]
+    if cap2 > cap:
+        tables = [neighbors.grow(tb, cap2) for tb in tables]
+    updated, t_update = timed(torch, lambda: [
+        neighbors.update(tables[t], codes_all[t], nbs[t], nbs2[t])
+        for t in range(nl)])
+    launches = ops.LAUNCHES["neighbor_dists"]
+    log(f"N1 path: build of both tables {t_build * 1e3:.3f} ms, update "
+        f"{t_update * 1e3:.3f} ms (host clock, synchronised), "
+        f"neighbor_dists launches {launches}")
+    if launches == 0:
+        raise AssertionError("N1 launched no neighbor_dists")
+
+    # the kernel against its plain version, both tables at full width
+    err = unequal = 0
+    for t in range(nl):
+        want = ref.neighbor_dists(codes[t], nbs[t], m, 0, cap, torch.zeros(
+            (cap, cap), dtype=torch.int8, device=dev))
+        err = max(err, int((built[t].int() - want.int()).abs().max()))
+        unequal += int((built[t] != want).sum())
+        if not torch.equal(built[t], want):
+            raise AssertionError(f"neighbor_dists differs from its plain "
+                                 f"version on table {t}: max |diff| {err}, "
+                                 f"{unequal} entries unequal")
+        # the rings of 64 buckets, k = 1..M, against hamming_to_buckets
+        idx = torch.linspace(0, nbs[t] - 1, N1_RINGS, device=dev).long()
+        ham = ops.hamming_to_buckets(
+            codes[t][None].contiguous(), codes[t][idx][:, None].contiguous(),
+            torch.tensor([nbs[t]], dtype=torch.int32, device=dev))[:, 0]
+        table = neighbors.NeighborTable(built[t], torch.tensor(nbs[t]), m)
+        for kk in range(1, m + 1):
+            if not torch.equal(neighbors.ring(table, idx, kk), ham == kk):
+                raise AssertionError(f"table {t}: ring {kk} differs from the "
+                                     "online ring")
+        if not torch.equal(updated[t].dists, neighbors.build(
+                codes_all[t], nbs2[t], m).dists):
+            raise AssertionError(f"table {t}: Alg. 9's update differs from "
+                                 "a fresh Alg. 6 build")
+    log(f"N1: neighbor_dists torch.equal to its plain version on both "
+        f"tables (max |diff| {err}, {unequal} entries unequal); rings 1..{m} of {N1_RINGS} buckets a table equal "
+        "hamming_to_buckets' rings; Alg. 9 update torch.equal to a fresh "
+        "build")
+
+    def build_both():
+        return [ops.neighbor_dists(codes[t], nbs[t], m) for t in range(nl)]
+
+    def plain_both():
+        return [ref.neighbor_dists(codes[t], nbs[t], m, 0, cap, torch.zeros(
+            (cap, cap), dtype=torch.int8, device=dev)) for t in range(nl)]
+
+    fcodes = [c.float() for c in codes]
+
+    def cdist_both():
+        return [torch.cdist(c, c, p=0) for c in fcodes]
+
+    def update_both():
+        return [neighbors.update(updated[t], codes_all[t], nbs[t], nbs2[t])
+                for t in range(nl)]
+
+    # bytes: both tables written once, the codes read once; operations:
+    # the compares the live rows need
+    nbytes = nl * cap * cap + 4 * nl * cap * k
+    ops_n = sum(n * n * k for n in nbs)
+    tb, ti = nbytes / HBM_BYTES_S * 1e3, ops_n / INT32_OP_S * 1e3
+    res = dict(max_abs_err=float(err), ms=cuda_ms(torch, build_both),
+               plain_ms=cuda_ms(torch, plain_both, iters=3),
+               bound=(max(tb, ti), "bytes" if tb >= ti else "operations"),
+               library_ms=cuda_ms(torch, cdist_both, iters=3))
+    upd_ms = cuda_ms(torch, update_both)
+    dev_us = kernel_device_us(torch, build_both, "neighbor_dists_kernel")
+    upd_us = kernel_device_us(torch, update_both, "neighbor_dists_kernel")
+    new_rows = [b - a for a, b in zip(nbs, nbs2)]
+    log(f"neighbor_dists[{nl} x ({cap}, {cap}), K = {k}]: wrapper "
+        f"{res['ms']:.4f} ms for both tables (CUDA events), device "
+        f"{dev_us:.2f} us a table (profiler); plain {res['plain_ms']:.4f} ms, "
+        f"torch.cdist(p=0) {res['library_ms']:.4f} ms; bounds: bytes "
+        f"{tb:.4f} ms ({nbytes / 2 ** 20:.1f} MiB), compares {ti:.4f} ms "
+        f"({ops_n:.4g} at {INT32_OP_S / 1e12:.1f} Top/s)")
+    log(f"N1 Alg. 9 update ({new_rows} new codes, strips of "
+        f"{[r * (2 * cap2 - r) for r in new_rows]} entries): {upd_ms:.4f} ms "
+        f"against the build's {res['ms']:.4f} ms ({upd_ms / res['ms']:.4f}); "
+        f"device {upd_us:.2f} us a launch against the build's {dev_us:.2f}")
+    return res, launches
+
+
+def phase_baselines(torch, state, x, cfg, seed):
+    """B1: the paper's baselines at 1M, d = 128: 64 paper-protocol queries
+    x 12 targets through the Dynamic Prober (exact), Sampling 1 % and the
+    MLP trained on 60 % of the queries (``benchmarks/common.py`` eval_*);
+    q-error and ms a query. ``l2dist_rows`` launches are counted over the
+    sampling run alone; the prober's estimates launch no replaced kernel.
+    Returns the sampling run's launch counts and ``l2dist_rows``' result
+    entry at the sampling run's shape."""
+    from repro_torch.core import baselines, estimator as E
+    from repro_torch.data import vectors
+    from repro_torch.kernels import ops, ref
+    dev = x.device
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    qs, taus, cards = vectors.paper_query_workload(g, x, NQ)
+    nq, nt = taus.shape
+    n_pairs = nq * nt
+    truth = cards.reshape(-1)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    est_dp = torch.stack([E.estimate_batch(state, qs, taus[:, t], cfg,
+                                           generator=g) for t in range(nt)],
+                         dim=1).reshape(-1)
+    torch.cuda.synchronize()
+    dp_ms = (time.perf_counter() - t0) * 1e3
+    none_replaced(dict(ops.LAUNCHES), "B1 prober estimates")
+
+    fq, ft = qs.repeat_interleave(nt, 0), taus.reshape(-1)
+    n_s = x.shape[0] // 100
+    ops.reset_launches()
+    est_s, t_s = timed(torch, lambda: baselines.sampling_estimate(
+        x, fq, ft, g, n_s))
+    samp_counts = dict(ops.LAUNCHES)
+    if samp_counts["l2dist_rows"] == 0:
+        raise AssertionError("B1: sampling launched no l2dist_rows")
+    ids = baselines.draw_sample_ids(g, x.shape[0], n_pairs, n_s)
+    got = ops.l2dist_rows(x, ids, fq)
+    want = ref.l2dist_rows(x, ids, fq)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    check_decisions(torch, f"B1 l2dist_rows{tuple(ids.shape)}", got, want,
+                    (ft * ft)[:, None])
+    r, d = ids.shape[0], x.shape[1]
+    # 7.68M draws over 1M rows touch nearly every row, most several times:
+    # the function must read each distinct drawn row once
+    n_rows = torch.unique(ids).numel()
+    rows = dict(max_abs_err=float((got - want).abs().max()),
+                ms=cuda_ms(torch, lambda: ops.l2dist_rows(x, ids, fq)),
+                plain_ms=cuda_ms(torch, lambda: ref.l2dist_rows(x, ids, fq),
+                                 iters=3),
+                # ids, the distinct drawn rows, the queries, the distances
+                # out; a multiply-add a coordinate
+                bound=bound_ms(4 * (r * n_s + n_rows * d + r * d + r * n_s),
+                               2 * r * n_s * d),
+                library_ms=None)
+    del got, want
+    draw_ms = cuda_ms(torch, lambda: baselines.draw_sample_ids(
+        g, x.shape[0], n_pairs, n_s), iters=3)
+    rows_ms = rows["ms"]
+
+    ntr = int(nq * 0.6)
+    m, t_fit = timed(torch, lambda: baselines.fit_mlp(
+        x, qs[:ntr], taus[:ntr], cards[:ntr], g))
+    eq, et = qs[ntr:].repeat_interleave(nt, 0), taus[ntr:].reshape(-1)
+    est_m, t_m = timed(torch, lambda: baselines.mlp_estimate(m, eq, et))
+    log(f"B1 workload: {nq} queries x {nt} targets, cardinalities "
+        f"{int(cards.min())}..{int(cards.max())}")
+    summarize(torch, "B1 Dynamic Prober (exact)", est_dp, truth)
+    summarize(torch, "B1 Sampling 1 %", est_s, truth)
+    summarize(torch, "B1 MLP (held-out 40 %)", est_m,
+              cards[ntr:].reshape(-1))
+    small = (truth < 100)
+    for tag, est in (("Dynamic Prober", est_dp), ("Sampling 1 %", est_s)):
+        qe = q_errors(torch, est, truth)
+        log(f"B1 {tag}: q-error at cardinalities < 100 mean "
+            f"{float(qe[small].mean()):.4f} (n {int(small.sum())}), >= 100 "
+            f"mean {float(qe[~small].mean()):.4f}; zero estimates "
+            f"{int((est == 0).sum())}")
+    log(f"B1 ms a (query, tau): Dynamic Prober {dp_ms / n_pairs:.4f} "
+        f"({nt} batches of {nq}), Sampling 1 % {t_s * 1e3 / n_pairs:.4f} "
+        f"({n_pairs} rows x {n_s}: draws {draw_ms:.3f} ms, l2dist_rows "
+        f"{rows_ms:.3f} ms a batch), MLP {t_m * 1e3 / et.shape[0]:.4f}; "
+        f"MLP training {t_fit:.3f} s ({ntr} queries x {nt}, 400 epochs)")
+    log(f"B1 sampling launches: {json.dumps(samp_counts)}")
+    log(f"l2dist_rows[B1, ({r}, {n_s}, {d})]: kernel {rows['ms']:.4f} ms, "
+        f"plain {rows['plain_ms']:.4f} ms, bound {rows['bound'][0]:.4f} ms "
+        f"({rows['bound'][1]}; {n_rows} distinct rows drawn, "
+        f"{r * n_s / n_rows:.2f} draws a row), max_abs_err "
+        f"{rows['max_abs_err']}")
+    return samp_counts, rows
+
+
+def plain_l2dist(torch, x, q, rows=2 ** 18):
+    """``ref.l2dist`` in row chunks: its per-query (N, d) difference would
+    be 7 GB at N = 1M, d = 1770."""
+    from repro_torch.kernels import ref
+    return torch.cat([ref.l2dist(x[i:i + rows], q)
+                      for i in range(0, x.shape[0], rows)])
+
+
+def check_ground_truth(torch, tag, got, want, taus, cards):
+    """The workload's ``l2dist`` distances ``got`` (N, Q) against the plain
+    ones ``want`` at every tau of ``taus`` (Q, T), as ``check_decisions``
+    does, and its cardinalities ``cards`` (Q, T) against a recount from
+    ``want``: both may differ only by candidates within MARGIN tau^2 of
+    tau^2."""
+    n_dec = n_margin = n_cards = 0
+    for t in range(taus.shape[1]):
+        tsq = (taus[:, t] ** 2)[None, :]
+        dec = (got <= tsq) != (want <= tsq)
+        at_margin = (want - tsq).abs() <= MARGIN * tsq
+        if (dec & ~at_margin).any():
+            raise AssertionError(f"{tag}: a decision differs off the margin")
+        diff = (cards[:, t] - (want <= tsq).sum(0)).abs()
+        if (diff > at_margin.sum(0)).any():
+            raise AssertionError(f"{tag}: a cardinality differs from the "
+                                 "plain recount off the margin")
+        n_dec += int(dec.sum())
+        n_margin += int(at_margin.sum())
+        n_cards += int((diff > 0).sum())
+    log(f"{tag}: over {taus.shape[1]} taus a query, {n_dec} decisions "
+        f"differ, {n_margin} candidates within {MARGIN} tau^2 of tau^2; "
+        f"{n_cards} of {cards.numel()} cardinalities differ from a recount "
+        "from the plain distances")
+
+
+def phase_corpora(torch, cfg, seed, dev):
+    """D1: the five paper corpora at their own widths, each at N = 1M
+    (``load`` at scale 1M / CORPORA's N): the workload's ``l2dist`` (the
+    general kernel at d = 960 and 1770) against its plain version, and the
+    ground-truth cardinalities against a plain recount; build the exact
+    state, one ``estimate_batch`` of 64 paper-protocol queries; q-error,
+    wall ms, peak memory. At d = 1770 also Sampling 1 % (``l2dist_rows``
+    off its 16-byte path, against its plain version)."""
+    from repro_torch.core import baselines, estimator as E
+    from repro_torch.core.updates import next_pow2
+    from repro_torch.data import vectors
+    from repro_torch.kernels import ops, ref
+    for i, (name, (n0, d)) in enumerate(vectors.CORPORA.items()):
+        t_start = time.perf_counter()
+        g = torch.Generator(device=dev).manual_seed(seed + 20 + i)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        ds, t_load = timed(torch, lambda: vectors.load(
+            name, g, n_queries=NQ, scale=N / n0, device=dev))
+        tiled, general = (ops.LAUNCHES["l2dist"]
+                          - ops.LAUNCHES["l2dist_general"],
+                          ops.LAUNCHES["l2dist_general"])
+        plan = ops.l2dist_plan(ds.x.shape[0], NQ, d, ds.x.data_ptr(),
+                               ds.queries.data_ptr())
+        if (tiled, general) != ((1, 0) if plan else (0, 1)):
+            raise AssertionError(f"D1 {name}: l2dist launches tiled {tiled}, "
+                                 f"general {general}, against the plan")
+        got = ops.l2dist(ds.x, ds.queries)
+        want = plain_l2dist(torch, ds.x, ds.queries)
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        check_ground_truth(torch, f"D1 {name} l2dist{tuple(got.shape)}",
+                           got, want, ds.taus, ds.cards)
+        del got, want
+        plain_ms = cuda_ms(torch, lambda: plain_l2dist(
+            torch, ds.x, ds.queries), iters=1)
+        l2_ms = cuda_ms(torch, lambda: ops.l2dist(ds.x, ds.queries), iters=5)
+        lib_ms = cuda_ms(torch, lambda: torch.cdist(ds.x, ds.queries) ** 2,
+                         iters=3)
+        nb_, fl = 4 * (ds.x.numel() + NQ * d + ds.x.shape[0] * NQ), \
+            2 * ds.x.shape[0] * NQ * d
+        taus = ds.taus[torch.arange(NQ, device=dev),
+                       torch.arange(NQ, device=dev) % ds.taus.shape[1]]
+        truth = ds.cards[torch.arange(NQ, device=dev),
+                         torch.arange(NQ, device=dev) % ds.taus.shape[1]]
+        state, t_build = timed(torch, lambda: E.build(
+            ds.x, cfg, g, capacity=next_pow2(ds.x.shape[0]), device=dev))
+        ops.reset_launches()
+        E.estimate_batch(state, ds.queries, taus, cfg, generator=g)
+        est, t_est = timed(torch, lambda: E.estimate_batch(
+            state, ds.queries, taus, cfg, generator=g))
+        counts = dict(ops.LAUNCHES)
+        none_replaced(counts, f"D1 {name}")
+        if any(counts[kk] == 0 for kk in PATH_KERNELS):
+            raise AssertionError(f"D1 {name}: a path kernel did not launch: "
+                                 f"{counts}")
+        log(f"D1 {name} (N {ds.x.shape[0]}, d {d}; CORPORA N {n0} x "
+            f"{N / n0:g}): load {t_load:.3f} s, build {t_build:.3f} s, "
+            f"estimate_batch of {NQ} {t_est * 1e3:.3f} ms (second call), "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
+            f" GiB; the workload's l2dist took the "
+            f"{'tiled' if tiled else 'general'} kernel: {l2_ms:.4f} ms a "
+            f"call ({ds.x.shape[0]} x {NQ} x {d}; bounds: bytes "
+            f"{nb_ / HBM_BYTES_S * 1e3:.4f} ms, operations "
+            f"{fl / FP32_FLOP_S * 1e3:.4f} ms), plain {plain_ms:.2f} ms (one "
+            f"call, in row chunks), torch.cdist(x, q) ** 2 {lib_ms:.4f} ms, "
+            f"max |diff| {err}")
+        summarize(torch, f"D1 {name} estimate", est, truth)
+        if d == D1_SAMPLING_DIM:
+            n_s = ds.x.shape[0] // 100
+            est_s, t_s = timed(torch, lambda: baselines.sampling_estimate(
+                ds.x, ds.queries, taus, g, n_s))
+            summarize(torch, f"D1 {name} Sampling 1 %", est_s, truth)
+            ids = baselines.draw_sample_ids(g, ds.x.shape[0], NQ, n_s)
+            got = ops.l2dist_rows(ds.x, ids, ds.queries)
+            want = ref.l2dist_rows(ds.x, ids, ds.queries)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            check_decisions(torch, f"D1 {name} l2dist_rows"
+                            f"{tuple(ids.shape) + (d,)}", got, want,
+                            (taus * taus)[:, None])
+            del got, want
+            log(f"D1 {name} Sampling 1 %: {t_s * 1e3:.3f} ms for {NQ} "
+                f"queries x {n_s} rows; l2dist_rows {cuda_ms(torch, lambda: ops.l2dist_rows(ds.x, ids, ds.queries), iters=5):.4f}"
+                " ms a call")
+        del ds, state
+        torch.cuda.empty_cache()
+        log(f"D1 {name}: {time.perf_counter() - t_start:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1972,10 +2377,19 @@ def main(argv=None) -> int:
                          "chip_smoke.py")
     sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
+    clock = [t_start]
+
+    def lap(tag):
+        """Log the seconds since the last lap: the per-phase times."""
+        now = time.perf_counter()
+        log(f"phase seconds [{tag}]: {now - clock[0]:.1f}")
+        clock[0] = now
+
     from repro_torch.core import lsh
     from repro_torch.core.config import ProberConfig
     from repro_torch.data import vectors
     phase_build()
+    lap("device and build")
     cfg = ProberConfig(**CFG_KW)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1989,7 +2403,9 @@ def main(argv=None) -> int:
     res = phase_kernels(torch, corpus, qs0, taus0, index, cfg)
     del index, x_pad
     torch.cuda.empty_cache()
+    lap("kernels")
     counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)
+    lap("main path")
     phase_query_lanes(torch, state.index, qs, "2^21")
     phase_query_lanes(torch, every_row_live(torch, state.index), qs,
                       "2^21, every row live")
@@ -2005,6 +2421,7 @@ def main(argv=None) -> int:
     del state
     torch.cuda.empty_cache()
     phase_small_agreement(torch, cfg, args.seed)
+    lap("query_lanes, slab, central, profile, agreement")
     serve_counts, co, pool_q, pool_t, picks = phase_serving(
         torch, corpus, cfg, args.seed)
     phase_serving_times(torch, co, pool_q, pool_t, picks)
@@ -2013,6 +2430,7 @@ def main(argv=None) -> int:
     res["cache_insert"] = phase_cache_insert(torch, args.seed)
     phase_serving_agreement(torch, cfg, args.seed)
     torch.cuda.empty_cache()
+    lap("serving S1-S3")
     pq_counts, pstate, sstate = phase_pq_main_path(torch, corpus, qs, taus,
                                                    args.seed)
     res.update(phase_adc_kernels(torch, sstate, qs, taus))
@@ -2058,10 +2476,30 @@ def main(argv=None) -> int:
                     ("pq uint8, packed", dict(pq_int8_lut=True))):
         phase_small_agreement(torch, ProberConfig(
             **CFG_KW, use_pq=True, pq_pack4=True, **kw), args.seed, tag)
+    lap("PQ path")
+    # N1 and B1 on the main path's 1M state at 2^20 (the same build: the
+    # same generator seed), then D1
+    nstate = E.build(x, cfg, torch.Generator(device=dev).manual_seed(
+        args.seed + 1), capacity=CAPACITY, device=dev)
+    res["neighbor_dists"], counts["neighbor_dists"] = phase_neighbors(
+        torch, nstate, cfg, args.seed)
+    lap("N1 neighbor table")
+    b1_counts, res["l2dist_rows"] = phase_baselines(torch, nstate, x, cfg,
+                                                    args.seed)
+    counts["l2dist_rows"] = b1_counts["l2dist_rows"]
+    del nstate, corpus, x
+    torch.cuda.empty_cache()
+    lap("B1 baselines")
+    phase_corpora(torch, cfg, args.seed, dev)
+    for d in D1_AGREE_DIMS:
+        phase_small_agreement(torch, cfg, args.seed, f"exact, d = {d}",
+                              dim=d)
+    lap("D1 corpora")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the
-    # reference), cache_insert's from the serving run
+    # reference), cache_insert's from the serving run, neighbor_dists' from
+    # N1, l2dist_rows' from B1's sampling run
     counts.update({k: sum(w[k] for w in pq_counts.values())
                    for k in ("adc_rows", "adc_rows_q8", "adc_batch",
                              "adc_batch_q8")})

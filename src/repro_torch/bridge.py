@@ -13,6 +13,10 @@ with ingest epochs adds ``epochs.params_epoch`` and ``epochs.n_ingested``
 :func:`cache_to_numpy` / :func:`cache_from_numpy` carry an estimate cache
 the same way, field by field under the reference's names and dtypes
 (``qhash`` and ``snap_params`` uint32, ``valid`` and ``ref`` bool).
+:func:`neighbor_table_to_numpy` / ``_from_numpy`` carry a bucket-neighbor
+table (``dists`` int8, ``n`` int32, ``max_dist`` an int), and
+:func:`mlp_to_numpy` / ``mlp_from_numpy`` the learned baseline (``refs``,
+``w1`` … ``b3`` float32, in the reference's (in, out) layout).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.cache.epochs import EpochState
 from repro_torch.cache.estimate_cache import EstimateCache
-from repro_torch.core import lsh, pq as pqmod
+from repro_torch.core import baselines, lsh, neighbors, pq as pqmod
 from repro_torch.core.estimator import ProberState
 
 _INDEX_FIELDS = ("raw", "codes", "order", "bucket_codes", "bucket_starts",
@@ -95,3 +99,30 @@ def cache_to_numpy(cache: EstimateCache) -> dict[str, np.ndarray]:
         a = v.detach().cpu().numpy()
         out[k] = a.astype(np.uint32) if k in _UINT32 else a
     return out
+
+
+def neighbor_table_from_numpy(d: dict, device) -> neighbors.NeighborTable:
+    return neighbors.NeighborTable(
+        dists=_to_torch(np.asarray(d["dists"], np.int8), device),
+        n=_to_torch(np.asarray(d["n"], np.int32), device),
+        max_dist=int(d["max_dist"]))
+
+
+def neighbor_table_to_numpy(table: neighbors.NeighborTable) -> dict:
+    return {"dists": table.dists.cpu().numpy(),
+            "n": table.n.cpu().numpy().astype(np.int32),
+            "max_dist": int(table.max_dist)}
+
+
+def mlp_from_numpy(d: dict, device) -> baselines.MLPEstimator:
+    missing = [k for k in baselines.MLP_FIELDS if k not in d]
+    if missing:
+        raise KeyError(f"missing MLP fields: {missing}")
+    return baselines.MLPEstimator(*(
+        _to_torch(np.asarray(d[k], np.float32), device)
+        for k in baselines.MLP_FIELDS))
+
+
+def mlp_to_numpy(m: baselines.MLPEstimator) -> dict[str, np.ndarray]:
+    return {k: getattr(m, k).detach().cpu().numpy()
+            for k in baselines.MLP_FIELDS}

@@ -15,9 +15,9 @@ class ProberConfig:
     """Static prober settings.
 
     The port honours the LSH, probing, sampling and PQ/ADC fields
-    (``use_pq`` and every ``pq_*`` field) as the reference does. Fields of
-    later slices (neighbor table, serving ingest) are kept so field sets
-    compare equal with the reference. ``lane_tile`` and ``use_kernels`` are
+    (``use_pq`` and every ``pq_*`` field) as the reference does;
+    ``table_max_dist`` is the neighbor table's M (``core/neighbors.py``)
+    and ``ingest_chunk`` the coalescer's ingest chunk. ``lane_tile`` and ``use_kernels`` are
     ignored: all active lanes of a batch run as one batch on the GPU, and on
     CUDA tensors the kernels always run (CPU tensors take the plain
     versions in ``kernels/ref.py``). ``lane_block`` is the number of slab
@@ -54,9 +54,9 @@ class ProberConfig:
     lane_block: int = 4        # slab steps between lane compactions; 0
                                # compacts after every step (see above)
     lane_tile: int = 16        # ignored by the port (see class docstring)
-    # --- neighbor lookup (paper §4.7, Alg. 6) — later slice ---
+    # --- neighbor lookup (paper §4.7, Alg. 6) ---
     table_max_dist: int = 6
-    # --- serving ingest (paper §5) — later slice ---
+    # --- serving ingest (paper §5) ---
     ingest_chunk: int = 256
     # --- kernels ---
     use_kernels: bool = False  # ignored by the port (see class docstring)

@@ -45,15 +45,6 @@ class ProberState(NamedTuple):
         return self.x.shape[0]
 
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; CUDA must exist if asked for."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
-
-
 def build(x: torch.Tensor, cfg: ProberConfig,
           generator: torch.Generator | None = None,
           params: lsh.LSHParams | None = None, capacity: int | None = None,
@@ -63,7 +54,7 @@ def build(x: torch.Tensor, cfg: ProberConfig,
     fits keeps every shape. ``params`` reuses given hash functions;
     otherwise they are drawn from ``generator``, before the k-means initial
     rows. ``track_epochs`` attaches the estimate cache's ingest epochs."""
-    dev = resolve_device(device)
+    dev = ops.resolve_device(device)
     x = torch.as_tensor(x).to(dev, torch.float32).contiguous()
     if params is not None:
         params = lsh.LSHParams(*(p.to(dev, torch.float32) for p in params))

@@ -1,8 +1,11 @@
-"""Synthetic vector corpora and the paper's query protocol, on the device
-(port of ``repro/data/vectors.py``; draws come from a ``torch.Generator``
-and are not bit-equal to the reference's).
+"""Synthetic vector corpora shaped like the paper's five datasets, and the
+paper's query protocol, on the device (port of ``repro/data/vectors.py``;
+draws come from a ``torch.Generator`` and are not bit-equal to the
+reference's).
 
-The corpus is a clustered low-intrinsic-dimensional manifold embedded in
+SIFT, GloVe, FastText, GIST and YouTube are replaced by matched-shape
+surrogates: the ambient dimension is the real corpus's, N is scaled. The
+corpus is a clustered low-intrinsic-dimensional manifold embedded in
 the ambient dimension (real image and text embeddings have intrinsic
 dimension ~8–20), which gives broad distance distributions. The query
 workload follows paper §6.1: query points sampled from the data, a
@@ -11,12 +14,33 @@ the midpoint between the target's distance and the next one.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import zlib
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+
+# name -> (n_objects, dim) at benchmark scale (the real corpora's dims,
+# CPU-scaled N): the reference's table
+CORPORA: dict[str, tuple[int, int]] = {
+    "sift":     (40000, 128),
+    "glove":    (40000, 300),
+    "fasttext": (40000, 300),
+    "gist":     (20000, 960),
+    "youtube":  (10000, 1770),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class VectorDataset:
+    name: str
+    x: torch.Tensor         # (N, d) float32
+    queries: torch.Tensor   # (Q, d) float32
+    taus: torch.Tensor      # (Q, T) float32 threshold grid per query
+    cards: torch.Tensor     # (Q, T) exact cardinality per (query, tau)
 
 
 def make_corpus(generator: torch.Generator, n: int, dim: int, *,
@@ -61,3 +85,26 @@ def paper_query_workload(generator: torch.Generator, x: torch.Tensor,
     cards = torch.stack([(d2 <= (taus[:, t] ** 2)[:, None]).sum(1)
                          for t in range(taus.shape[1])], dim=1)
     return queries, taus, cards
+
+
+def load(name: str, generator: torch.Generator | None = None,
+         n_queries: int = 32, scale: float = 1.0,
+         device="cuda") -> VectorDataset:
+    """A named surrogate corpus of ``CORPORA[name]`` at ``scale`` × its N,
+    with the paper-protocol query workload, made on ``device`` (default
+    ``"cuda"``; raises when CUDA is absent and the CPU was not asked for).
+    ``generator`` must live on that device. Without one, the draws are
+    seeded from ``zlib.crc32(name)``: a departure from the reference, which
+    seeds from ``hash(name)``, a value that changes from process to process
+    under ``PYTHONHASHSEED``."""
+    dev = ops.resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(
+            zlib.crc32(name.encode()) % 2 ** 31)
+    elif generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, data on {dev}")
+    n, dim = CORPORA[name]
+    x = make_corpus(generator, int(n * scale), dim)
+    queries, taus, cards = paper_query_workload(generator, x, n_queries)
+    return VectorDataset(name=name, x=x, queries=queries, taus=taus,
+                         cards=cards)

@@ -40,6 +40,7 @@ SIGNATURES = {
     "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
     "central_qualify": [_P] * 18 + [_I] * 15 + [_P],
     "cache_insert": [_P] * 21 + [_I] * 5 + [_P],
+    "neighbor_dists_i8": [_P, _P] + [_I] * 7 + [_P],
 }
 
 

@@ -22,7 +22,8 @@ LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
                             "l2dist_general": 0, "l2dist_rows": 0,
                             "adc_rows": 0, "adc_rows_q8": 0, "adc_batch": 0,
                             "adc_batch_q8": 0, "slab_qualify": 0,
-                            "central_qualify": 0, "cache_insert": 0}
+                            "central_qualify": 0, "cache_insert": 0,
+                            "neighbor_dists": 0}
 
 
 def reset_launches() -> None:
@@ -32,6 +33,15 @@ def reset_launches() -> None:
 
 # a block's shared memory on the H100: 227 KB
 _SMEM_LIMIT = 232448
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; CUDA must exist if asked for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -745,3 +755,47 @@ def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
             active.data_ptr(), n_evicted.data_ptr(), s, n, nl, nl * k,
             int(match_qhash))
     return n_evicted
+
+
+# ---- the bucket-neighbor table (Alg. 6 / 9) -------------------------------
+
+def neighbor_dists(codes: torch.Tensor, n_valid: int, max_dist: int,
+                   r0: int = 0, r1: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """codes (B, K) int32 → the (B, B) int8 table ``out[i, j] =
+    popcount(codes[i] != codes[j])`` where i, j < ``n_valid`` and
+    0 < d <= ``max_dist``, else 0. Only the entries with i or j in the row
+    range [r0, r1) (default: every row) are written; the rest of ``out``
+    is left as it is. ``out=None`` gives a new table, zero outside the
+    strips. One launch on the card (the row strip and its symmetric column
+    strip together)."""
+    cpu = _on_cpu(codes) if out is None else _on_cpu(codes, out)
+    if not cpu:
+        _check(codes, "codes", torch.int32, 2)
+    if codes.dim() != 2:
+        raise ValueError(f"codes: expected (B, K), got {tuple(codes.shape)}")
+    b, k = codes.shape
+    r1 = b if r1 is None else int(r1)
+    r0, n_valid = int(r0), int(n_valid)
+    if not 0 <= r0 <= r1 <= b or not 0 <= n_valid <= b:
+        raise ValueError(f"row range [{r0}, {r1}) and n_valid {n_valid} "
+                         f"must lie in [0, {b}]")
+    if not 0 <= max_dist <= 127:
+        raise ValueError(f"max_dist {max_dist} must fit int8 (0..127)")
+    if out is None:
+        full = r0 == 0 and r1 == b
+        out = (torch.empty if full else torch.zeros)(
+            (b, b), dtype=torch.int8, device=codes.device)
+    elif out.dtype != torch.int8 or tuple(out.shape) != (b, b) \
+            or not out.is_contiguous():
+        raise ValueError(f"out: expected contiguous int8 ({b}, {b}), got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    if cpu:
+        return ref.neighbor_dists(codes, n_valid, max_dist, r0, r1, out)
+    if not 0 < k <= 32:
+        raise ValueError(f"neighbor_dists takes 1..32 functions, got K={k}")
+    if r1 > r0:
+        aligned = int(b % 16 == 0 and out.data_ptr() % 16 == 0)
+        _launch("neighbor_dists", "neighbor_dists_i8", codes.data_ptr(),
+                out.data_ptr(), b, k, n_valid, max_dist, r0, r1, aligned)
+    return out

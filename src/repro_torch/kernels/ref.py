@@ -325,3 +325,20 @@ def cache_insert(cache, qcodes, qhash, tau_keys, balls, params_epoch, ests,
         c.hand.copy_(torch.where(do_evict, victim[0].to(torch.int32),
                                  c.hand))
     return n_ev
+
+
+def neighbor_dists(codes, n_valid, max_dist, r0, r1, out):
+    """The bucket-neighbor table's entries with i or j in [r0, r1), written
+    into ``out`` (B, B) int8: ``popcount(codes[i] != codes[j])`` where
+    i, j < ``n_valid`` and 0 < d <= ``max_dist``, else 0. The row strip is
+    one (r1 − r0, B, K) compare; the column strip is its transpose (the
+    table is symmetric)."""
+    b = codes.shape[0]
+    d = (codes[r0:r1, None, :] != codes[None, :, :]).sum(
+        -1, dtype=torch.int32)
+    valid = torch.arange(b, device=codes.device) < n_valid
+    keep = valid[r0:r1, None] & valid[None, :] & (d > 0) & (d <= max_dist)
+    strip = torch.where(keep, d, 0).to(torch.int8)
+    out[r0:r1] = strip
+    out[:, r0:r1] = strip.T
+    return out
