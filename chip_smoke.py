@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--s1-only]
+
+``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
+draws, without the main path's q-errors) and prints no result lines.
 
 Phases, in order; each raises on failure:
 
@@ -69,7 +72,7 @@ Phases, in order; each raises on failure:
 
 The serving path runs between 7 and 8:
 
-S1. The serving deployment at the main path's width: the exact state at
+C1. The serving deployment at the main path's width: the exact state at
     capacity 2^20 with ingest epochs, ``CardinalityCoalescer(cache_size=
     1024, max_batch=64, reuse_tol=0)``, a pool of the 64 paper-protocol
     queries x 4 grid radii, 24 flushes of 64 zipfian (s = 0.99) draws over
@@ -91,11 +94,11 @@ S1. The serving deployment at the main path's width: the exact state at
     evictions, wall ms and peak memory, and the served q-error before the
     first ingest; then the lookup's and ``query_lanes``' times at the
     flush's shapes and profiles of an all-hit and an all-miss flush.
-S2. ``cache_insert`` against its plain version, ``torch.equal`` on every
+C2. ``cache_insert`` against its plain version, ``torch.equal`` on every
     field (S = 1024 and 65,536; 64 and 256 lanes; duplicate keys; a full
     cache with every ``ref`` set), with wrapper, device and plain-loop
     times and the bound.
-S3. Small-input agreement of the serving path: the same stream at
+C3. Small-input agreement of the serving path: the same stream at
     reuse_tol 0.25 through a CPU and a GPU coalescer with the same round
     keys.
 
@@ -125,6 +128,35 @@ D1. The five paper corpora (``CORPORA``) at their own widths (128, 300,
     and the small-input CPU-vs-GPU agreement at d = 1770 (the kernels'
     paths for rows that are not 16-byte pieces).
 
+Then this slice's phase, the sharded deployment:
+
+S1. The main path's corpus, queries and ingests over four ranks of one
+    process group on the card (``distributed.run_ranks``: spawned
+    processes, gloo, whose collectives take CUDA tensors; NCCL refuses two
+    ranks on one device): ``build_sharded`` at a global capacity of 2^20
+    (2^18 a shard), ``estimate_sharded`` in ``local`` and ``sync`` mode,
+    ``update_sharded`` of the 16,384 points (4,096 a shard), both modes,
+    ``update_sharded`` of the 40,000 (every shard grows to 2^19 together),
+    both modes; launch counts zeroed before and read after this sequence
+    on every rank. Checks, each fatal: (1) every rank's codes equal a
+    single-device build (and its ingests) of the same points with the same
+    functions, and W that state's W; (2) W the same on every rank after
+    each step, and the estimates too; (3) live counts the round-robin
+    ones (254,096 and 264,096 a shard); (4) ``eps = 0`` and ``s1 = 1``
+    recover ``true_cardinality`` within 1e-2 in both modes (the reference's
+    ``test_8dev_distributed_estimator`` config, 4,000 x 32); (5) a group
+    of one rank over NCCL: build, updates and both modes ``torch.equal``
+    to ``estimate_batch`` (``test_sharded_paths_on_trivial_mesh``); (6) on
+    the reference's skewed split, sync mean q-error <= local and < 1.05;
+    (7) two ranks on the CPU against two on the card, 8,192 x 32: equal
+    integer-valued estimates, the rest within rtol 1e-5, equal
+    ``probed_k`` and ``nvisited``; (8) as (7) on every rank's full-width
+    shard after each step of the sequence (a CPU copy against the card,
+    both modes, 8 queries tie-free over all shards). Logs q-errors beside
+    the main path's, wall ms at rank 0, collectives and their ms, ingest
+    points/s, and per rank the launches and peak memory. The ranks share
+    one card: no time there is a scaling figure.
+
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
 non-zero, printing no result, without CUDA or without the
@@ -135,6 +167,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -237,16 +270,20 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def smi_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
 def phase_device(torch) -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
     log(f"device: {name} (count {torch.cuda.device_count()})")
-    log(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(smi_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     return name
 
@@ -588,13 +625,16 @@ def summarize(torch, tag, est, truth):
     if not torch.isfinite(est).all() or (est < 0).any():
         raise AssertionError(f"{tag}: non-finite or negative estimate")
     qe = q_errors(torch, est, truth)
-    log(f"{tag}: q-error mean {float(qe.mean()):.4f} median "
-        f"{float(qe.median()):.4f} p95 {float(torch.quantile(qe, 0.95)):.4f} "
-        f"max {float(qe.max()):.4f}")
+    stats = (float(qe.mean()), float(qe.median()),
+             float(torch.quantile(qe, 0.95)), float(qe.max()))
+    log(f"{tag}: q-error mean {stats[0]:.4f} median {stats[1]:.4f} p95 "
+        f"{stats[2]:.4f} max {stats[3]:.4f}")
+    return stats
 
 
-def phase_main_path(torch, corpus, cfg, seed) -> dict:
-    """The port's main path at SIFT1M scale; returns the launch counts."""
+def phase_main_path(torch, corpus, cfg, seed):
+    """The port's main path at SIFT1M scale; returns the launch counts, the
+    grown state, the queries and radii, and the q-errors at each stage."""
     from repro_torch.core import estimator as E
     from repro_torch.data import vectors
     from repro_torch.kernels import ops
@@ -633,7 +673,7 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     est, probed_k, nvis = first
     truth = truth_line(torch, "@ N", E.true_cardinality(state.x, qs, taus,
                                                           n_valid=N))
-    summarize(torch, "estimate @ N", est, truth)
+    qerr = {"@ N": summarize(torch, "estimate @ N", est, truth)}
     log(f"  probed_k mean {float(probed_k.float().mean()):.3f}, nvisited "
         f"mean {float(nvis.float().mean()):.1f}")
 
@@ -649,7 +689,7 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     truth = truth_line(torch, "@ N+ingest", E.true_cardinality(
         state.x, qs, taus, n_valid=N + N_INGEST))
     log(f"estimate_batch after ingest: {t_est * 1e3:.3f} ms")
-    summarize(torch, "estimate @ N+ingest", est, truth)
+    qerr["@ N+ingest"] = summarize(torch, "estimate @ N+ingest", est, truth)
 
     n_all = N + N_INGEST + N_GROW
     state, t_grow = timed(torch, lambda: E.update(
@@ -662,7 +702,7 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     truth = truth_line(torch, "@ grown", E.true_cardinality(
         state.x, qs, taus, n_valid=n_all))
     log(f"estimate_batch after growth: {t_est * 1e3:.3f} ms")
-    summarize(torch, "estimate @ grown", est, truth)
+    qerr["@ grown"] = summarize(torch, "estimate @ grown", est, truth)
     counts = dict(ops.LAUNCHES)
     nl, nk, nb = cfg.n_tables, cfg.n_funcs, state.capacity
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
@@ -677,7 +717,7 @@ def phase_main_path(torch, corpus, cfg, seed) -> dict:
     log(f"per estimate: {counts['query_lanes'] / 4:g} query_lanes and "
         f"{counts['central_qualify'] / 4:g} central_qualify launches (4 "
         "estimates)")
-    return counts, state, qs, taus
+    return counts, state, qs, taus, qerr
 
 
 def digest(t) -> str:
@@ -1132,6 +1172,16 @@ def check_pq_fit(torch, x, cfg, g):
         raise AssertionError("PQ fit on the card departs from the CPU's")
 
 
+def tie_free(torch, x, qs, taus, params):
+    """Mask of the queries with no hash value within the float margin of
+    an integer and no point's d² within MARGIN τ² of τ²: where two paths
+    may legitimately decide differently."""
+    ok_hash = ~near_integer(torch, qs, params.a, params.b, params.w).any(1)
+    d2 = torch.stack([((x.double() - q) ** 2).sum(-1) for q in qs.double()])
+    t2 = (taus.double() ** 2)[:, None]
+    return ok_hash & ~((d2 - t2).abs() <= MARGIN * t2).any(1)
+
+
 def phase_small_agreement(torch, cfg, seed, tag="exact", dim=32):
     """The same index, queries and round keys on the CPU (plain versions)
     and on the GPU (kernels): equal ring depths and sample counts, equal
@@ -1147,15 +1197,10 @@ def phase_small_agreement(torch, cfg, seed, tag="exact", dim=32):
     gpu = bridge.state_from_numpy(bridge.state_to_numpy(cpu), "cuda")
     qs, taus, _ = vectors.paper_query_workload(g, x, 48, n_taus=6)
     taus = taus[torch.arange(48), torch.arange(48) % taus.shape[1]]
-    p = cpu.index.params
-    ok_hash = ~near_integer(torch, qs, p.a, p.b, p.w).any(1)
-    d2 = torch.stack([((x.double() - q) ** 2).sum(-1)
-                      for q in qs.double()])
-    t2 = (taus.double() ** 2)[:, None]
-    ok_tau = ~((d2 - t2).abs() <= MARGIN * t2).any(1)
+    ok = tie_free(torch, x, qs, taus, cpu.index.params)
     if cfg.use_pq:
-        ok_tau &= tie_free_pq_queries(cpu, qs, taus, cfg)
-    keep = torch.nonzero(ok_hash & ok_tau).squeeze(1)[:16]
+        ok &= tie_free_pq_queries(cpu, qs, taus, cfg)
+    keep = torch.nonzero(ok).squeeze(1)[:16]
     if keep.numel() < 8:
         raise AssertionError("too few tie-free queries for the agreement")
     qs, taus = qs[keep], taus[keep]
@@ -2366,9 +2411,372 @@ def phase_corpora(torch, cfg, seed, dev):
         log(f"D1 {name}: {time.perf_counter() - t_start:.1f} s")
 
 
+# ---------------------------------------------------------------- S1 ----
+# the sharded deployment: the main path's corpus, queries and ingests over
+# S1_RANKS ranks of one card (gloo: NCCL refuses two ranks on one device);
+# its checks' configs are the reference's tests/test_sharding.py ones
+S1_RANKS, S1_TIMEOUT = 4, 600
+S1_EPS0_KW = dict(n_tables=1, n_funcs=6, ring_budget=1024,
+                  central_budget=1024, chunk=128, eps=0.0, s1=1.0,
+                  max_visit=100000)            # test_8dev_distributed_estimator
+S1_SKEW_KW = dict(n_tables=1, n_funcs=8, n_regions=4, ring_budget=2048,
+                  central_budget=2048, chunk=64, s1=0.05,
+                  eps=0.12)    # test_8dev_sync_beats_local_on_skewed_shards
+S1_TRIVIAL_KW = dict(n_tables=2, n_funcs=6, ring_budget=512,
+                     central_budget=512, chunk=128)  # trivial-mesh test
+CORPUS_STRIDE = 4099          # rows of the corpus digest the ranks compare
+
+
+def phase_sharded_rank(rank, spec):
+    """One rank of S1 (spawned by ``distributed.run_ranks``): the main
+    sequence on this rank's shard with launch counts zeroed before it and
+    read after it (checks 1-3 and 8 inside it), then checks 4-7; writes
+    its record to ``spec["out"]``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.core import collectives, distributed as D, estimator as E
+    from repro_torch.core import lsh
+    from repro_torch.core.config import ProberConfig
+    from repro_torch.data import vectors
+    from repro_torch.kernels import ops
+    dev = torch.device(spec["dev"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev.index or 0)
+    p_ranks = dist.get_world_size()
+    # the ranks share the host's cores (check 7 and 8 run on the CPU)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // p_ranks))
+    say = log if rank == 0 else (lambda *a: None)
+    seed, n, cap = spec["seed"], spec["n"], spec["capacity"]
+    cfg = ProberConfig(**CFG_KW)
+    nl = cfg.n_tables
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def clock(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def same_on_every_rank(t, what):
+        t0 = t.clone()
+        dist.broadcast(t0, 0)
+        if not torch.equal(t0, t):
+            raise AssertionError(f"S1 rank {rank}: {what} differs from "
+                                 "rank 0's")
+
+    corpus = vectors.make_corpus(
+        torch.Generator(device=dev).manual_seed(seed),
+        n + spec["ingest"] + spec["grow"], spec["dim"])
+    if digest(corpus[::CORPUS_STRIDE]) != spec["digest"]:
+        raise AssertionError(f"S1 rank {rank}: corpus differs from the main "
+                             "path's")
+    qs, taus = spec["qs"].to(dev), spec["taus"].to(dev)
+    nq = qs.shape[0]
+    rec = {"rank": rank, "estimates": {}}
+    stream = [0]
+
+    def check_single(tag, st, single, gids):
+        """Check 1 (codes against the single-device state, W against its
+        W) and check 2 (W the same on every rank)."""
+        if not torch.equal(st.index.params.w, single.index.params.w):
+            raise AssertionError(f"S1 {tag} rank {rank}: W differs from the "
+                                 "single-device W")
+        idx = torch.from_numpy(gids).to(dev)
+        if not torch.equal(st.index.codes[:, :len(gids)],
+                           single.index.codes[:, idx]):
+            raise AssertionError(f"S1 {tag} rank {rank}: codes differ from "
+                                 "the single-device state's")
+        same_on_every_rank(st.index.params.w, f"{tag}: W")
+
+    def estimates(tag, st, n_live):
+        truth = E.true_cardinality(corpus[:n_live], qs, taus) \
+            if rank == 0 else None
+        for mode in ("local", "sync"):
+            rks = D.shard_round_keys(seed, nq, nl, dev, stream=stream[0])
+            stream[0] += 1
+            c0 = dict(collectives.COUNT)
+            est, wall = clock(lambda: D.estimate_sharded(
+                st, qs, taus, cfg, rks, mode=mode))
+            n_c = collectives.COUNT["calls"] - c0["calls"]
+            s_c = collectives.COUNT["seconds"] - c0["seconds"]
+            same_on_every_rank(est, f"{tag} {mode} estimates")
+            rec["estimates"][f"{tag} {mode}"] = dict(
+                ms=wall * 1e3, collectives=n_c, collective_ms=s_c * 1e3)
+            if rank == 0:
+                qe = summarize(torch, f"S1 {tag} {mode}", est.cpu(),
+                               truth.cpu())
+                main = spec["main_qe"][tag]
+                say(f"  S1 {tag} {mode}: wall {wall * 1e3:.3f} ms at rank "
+                    f"0, {n_c} collectives ({s_c * 1e3:.3f} ms, "
+                    f"{s_c / wall:.3f} of the wall); single-device main "
+                    f"path q-error mean {main[0]:.4f} median {main[1]:.4f} "
+                    f"p95 {main[2]:.4f} (sharded: {qe[0]:.4f} / {qe[1]:.4f}"
+                    f" / {qe[2]:.4f})")
+
+    def check_cpu(tag, st):
+        """Check 8: this rank's real shard, copied to the CPU (plain
+        versions), against the card, both modes with the same group and
+        keys, on 8 queries tie-free over every shard's live rows: equal
+        integer-valued estimates, probed_k and nvisited, the rest within
+        rtol 1e-5. In sync mode a rank steps lanes past its own PRP domain
+        while other ranks still sample, and keeps lanes with an empty
+        local ring active: slab_qualify inputs that only this path gives.
+        Its launches are not the main path's: the counts are restored."""
+        saved, t0 = dict(ops.LAUNCHES), time.perf_counter()
+        ok = tie_free(torch, st.x[:int(st.n_valid)], qs, taus,
+                      st.index.params).to(torch.int32)
+        dist.all_reduce(ok, dist.ReduceOp.MIN)
+        keep = torch.nonzero(ok).squeeze(1)[:8]
+        if keep.numel() < 8:
+            raise AssertionError(f"S1 check 8 {tag}: too few tie-free "
+                                 "queries")
+        cpu = bridge.state_from_numpy(bridge.state_to_numpy(st), "cpu")
+        q8, t8 = qs[keep], taus[keep]
+        rks = D.shard_round_keys(seed, len(keep), nl, "cpu",
+                                 stream=200 + stream[0])
+        world, diff = dist.group.WORLD, 0.0
+        for mode, fn in (
+                ("local", lambda s, *a: E.estimate_batch_stats(
+                    s, *a[:3], rks=a[3])),
+                ("sync", lambda s, *a: E.estimate_batch_pooled(
+                    s, *a, world, with_stats=True))):
+            want = fn(cpu, q8.cpu(), t8.cpu(), cfg, rks)
+            got = [t.cpu() for t in fn(st, q8, t8, cfg, rks.to(dev))]
+            whole = want[0] == want[0].round()
+            if not torch.equal(got[0][whole], want[0][whole]):
+                raise AssertionError(f"S1 check 8 {tag} {mode} rank {rank}: "
+                                     "integer-valued estimates differ")
+            torch.testing.assert_close(got[0], want[0], rtol=1e-5,
+                                       atol=1e-5)
+            for what, a, b in zip(("probed_k", "nvisited"), got[1:],
+                                  want[1:]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"S1 check 8 {tag} {mode} rank "
+                                         f"{rank}: {what} differs")
+            diff = max(diff, float((got[0] - want[0]).abs().max()))
+        ops.LAUNCHES.update(saved)
+        say(f"S1 check 8 {tag} (each rank's shard of {int(st.n_valid)} "
+            f"rows on the CPU against {dev}, queries {keep.tolist()}): both "
+            f"modes agree (max |diff| at rank 0 {diff}), probed_k and "
+            f"nvisited equal; {time.perf_counter() - t0:.1f} s")
+
+    # ---- the main sequence: build, estimates, two ingests, estimates ----
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    g = torch.Generator(device=dev).manual_seed(seed + 50 + rank)
+    st, t_build = clock(lambda: D.build_sharded(corpus[:n], cfg, g,
+                                                capacity=cap, device=dev))
+    nv = np.full(p_ranks, n // p_ranks, np.int64)
+    if int(st.n_valid) != n // p_ranks or st.capacity != cap // p_ranks:
+        raise AssertionError(f"S1 rank {rank}: shard n_valid "
+                             f"{int(st.n_valid)}, capacity {st.capacity}")
+    say(f"S1 build_sharded: {t_build:.3f} s at rank 0 ({p_ranks} shards of "
+        f"{n // p_ranks} rows, capacity {st.capacity} a shard)")
+    gids = np.arange(rank * n // p_ranks, (rank + 1) * n // p_ranks)
+    raw = lsh.project_raw(st.index.params, corpus[:n])
+    single = E.build(corpus[:n], cfg, params=st.index.params._replace(
+        w=lsh.normalize_w(raw, cfg.n_regions)), capacity=cap, device=dev)
+    del raw
+    check_single("build", st, single, gids)
+    estimates("@ N", st, n)
+    check_cpu("@ N", st)
+    n_live = n
+    for tag, size, want_cap in (("@ N+ingest", spec["ingest"], cap),
+                                ("@ grown", spec["grow"], 2 * cap)):
+        x_new = corpus[n_live:n_live + size]
+        offset = int(nv.sum()) % p_ranks
+        (st, nv2), t_up = clock(lambda: D.update_sharded(st, x_new, cfg,
+                                                         n_valid=nv))
+        single = E.update(single, x_new, cfg, n_valid=n_live)
+        mine = np.arange((rank - offset) % p_ranks, size, p_ranks)
+        gids = np.concatenate([gids, n_live + mine])
+        want_nv = nv + np.bincount((offset + np.arange(size)) % p_ranks,
+                                   minlength=p_ranks)
+        if nv2.tolist() != want_nv.tolist() or \
+                int(st.n_valid) != want_nv[rank]:
+            raise AssertionError(f"S1 {tag} rank {rank}: live counts "
+                                 f"{nv2.tolist()}, want {want_nv.tolist()}")
+        caps = D.shard_counts(st.capacity, device=dev)
+        if (caps != want_cap // p_ranks).any():
+            raise AssertionError(f"S1 {tag}: shard capacities "
+                                 f"{caps.tolist()}, want {want_cap // p_ranks}")
+        nv, n_live = nv2, n_live + size
+        check_single(tag, st, single, gids)
+        say(f"S1 update_sharded {tag}: {size} points in {t_up:.3f} s = "
+            f"{size / t_up:.1f} points/s at rank 0; live counts "
+            f"{nv.tolist()}, shard capacity {st.capacity}")
+        rec[f"update {tag}"] = size / t_up
+        estimates(tag, st, n_live)
+        check_cpu(tag, st)
+    rec["launches"] = {k: ops.LAUNCHES[k] for k in PATH_KERNELS}
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if cuda else None
+    # (the CPU's plain versions count no launch)
+    missing = [k for k in PATH_KERNELS if rec["launches"][k] == 0]
+    if cuda and missing:
+        raise AssertionError(f"S1 rank {rank}: kernels not launched: "
+                             f"{missing}")
+    del st, single, corpus
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # ---- check 4: eps = 0 recovers the exact count in both modes ----
+    g0 = torch.Generator().manual_seed(seed + 60)
+    x0 = torch.randn((4000, 32), generator=g0).to(dev)
+    cfg0 = ProberConfig(**S1_EPS0_KW)
+    st0 = D.build_sharded(x0, cfg0, torch.Generator().manual_seed(seed + 61),
+                          device=dev)
+    q0, t0 = x0[:3] + 0.01, torch.tensor([1.0, 3.0, 6.0], device=dev)
+    truth0 = E.true_cardinality(x0, q0, t0).float()
+    for mode in ("local", "sync"):
+        est = D.estimate_sharded(st0, q0, t0, cfg0, D.shard_round_keys(
+            seed, 3, 1, dev, stream=100), mode=mode)
+        if not torch.allclose(est, truth0, rtol=0.0, atol=1e-2):
+            raise AssertionError(f"S1 eps=0 {mode}: {est.tolist()} against "
+                                 f"{truth0.tolist()}")
+    say(f"S1 check 4 (eps = 0, 4,000 x 32 over {p_ranks} ranks): both modes "
+        f"equal true_cardinality {truth0.tolist()} within 1e-2")
+
+    # ---- check 5: a group of one rank over NCCL, the plain path ----
+    backend = "nccl" if cuda else "gloo"
+    solo = dist.new_group([0], backend=backend)
+    if rank == 0:
+        g5 = torch.Generator().manual_seed(seed + 70)
+        x5 = torch.randn((2000, 16), generator=g5).to(dev)
+        cfg5 = ProberConfig(**S1_TRIVIAL_KW)
+        st5 = D.build_sharded(x5[:1000], cfg5, g5, group=solo,
+                              capacity=4096, device=dev)
+        nv5 = None
+        for i in range(1000, 2000, 250):
+            st5, nv5 = D.update_sharded(st5, x5[i:i + 250], cfg5, group=solo,
+                                        n_valid=nv5)
+        if nv5.tolist() != [2000]:
+            raise AssertionError(f"S1 check 5: live counts {nv5.tolist()}")
+        q5, t5 = x5[:4] + 0.01, torch.linspace(3.0, 6.0, 4, device=dev)
+        rks5 = D.shard_round_keys(seed, 4, cfg5.n_tables, dev, group=solo,
+                                  stream=101)
+        want = E.estimate_batch(st5, q5, t5, cfg5, rks=rks5)
+        for mode in ("local", "sync"):
+            got = D.estimate_sharded(st5, q5, t5, cfg5, rks5, group=solo,
+                                     mode=mode)
+            if not torch.equal(got, want):
+                raise AssertionError(f"S1 check 5 {mode}: {got.tolist()} "
+                                     f"against {want.tolist()}")
+        say(f"S1 check 5 (a {backend} group of one rank: build, 4 updates, "
+            "both modes): torch.equal to estimate_batch "
+            f"{want.tolist()}")
+
+    # ---- check 6: the reference's skewed split, sync no worse ----
+    xs, q6, t6 = vectors.skewed_shards(np.random.default_rng(0), p_ranks)
+    cfg6 = ProberConfig(**S1_SKEW_KW)
+    xs, q6, t6 = (torch.from_numpy(a).to(dev) for a in (xs, q6, t6))
+    st6 = D.build_sharded(xs, cfg6, torch.Generator().manual_seed(seed + 80),
+                          device=dev)
+    truth6 = E.true_cardinality(xs, q6, t6)
+    mq = {}
+    for mode in ("local", "sync"):
+        est = D.estimate_sharded(st6, q6, t6, cfg6, D.shard_round_keys(
+            seed, 6, 1, dev, stream=102), mode=mode)
+        mq[mode] = float(q_errors(torch, est, truth6).mean())
+    if not (mq["sync"] <= mq["local"] + 1e-6 and mq["sync"] < 1.05):
+        raise AssertionError(f"S1 check 6: mean q-error sync {mq['sync']}, "
+                             f"local {mq['local']}")
+    say(f"S1 check 6 (skewed split over {p_ranks} ranks): mean q-error "
+        f"local {mq['local']:.4f}, sync {mq['sync']:.4f}")
+
+    # ---- check 7: ranks on the CPU against ranks on the card, P = 2 ----
+    pair = dist.new_group([0, 1])
+    if rank < 2:
+        g7 = torch.Generator().manual_seed(seed + 2)
+        x7 = vectors.make_corpus(g7, spec["small_n"], 32)
+        cpu = D.build_sharded(x7, cfg, torch.Generator().manual_seed(seed),
+                              group=pair, capacity=2 * spec["small_n"],
+                              device="cpu")
+        gpu = bridge.state_from_numpy(bridge.state_to_numpy(cpu), dev)
+        q7, t7, _ = vectors.paper_query_workload(g7, x7, 48, n_taus=6)
+        t7 = t7[torch.arange(48), torch.arange(48) % t7.shape[1]]
+        keep = torch.nonzero(tie_free(torch, x7, q7, t7, cpu.index.params))
+        keep = keep.squeeze(1)[:16]
+        if keep.numel() < 8:
+            raise AssertionError("S1 check 7: too few tie-free queries")
+        q7, t7 = q7[keep], t7[keep]
+        rks = D.shard_round_keys(seed, len(keep), nl, "cpu", group=pair,
+                                 stream=103)
+        diff = 0.0
+        for mode in ("local", "sync"):
+            want = D.estimate_sharded(cpu, q7, t7, cfg, rks, group=pair,
+                                      mode=mode)
+            got = D.estimate_sharded(gpu, q7.to(dev), t7.to(dev), cfg,
+                                     rks.to(dev), group=pair,
+                                     mode=mode).cpu()
+            whole = want == want.round()
+            if not torch.equal(got[whole], want[whole]):
+                raise AssertionError(f"S1 check 7 {mode}: integer-valued "
+                                     "estimates differ")
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            diff = max(diff, float((got - want).abs().max()))
+        for name, fn in (
+                ("local", lambda s, *a: E.estimate_batch_stats(
+                    s, *a[:3], rks=a[3])),
+                ("sync", lambda s, *a: E.estimate_batch_pooled(
+                    s, *a, pair, with_stats=True))):
+            want = fn(cpu, q7, t7, cfg, rks)
+            got = fn(gpu, q7.to(dev), t7.to(dev), cfg, rks.to(dev))
+            for what, a, b in zip(("probed_k", "nvisited"), got[1:], want[1:]):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"S1 check 7 {name}: {what} differs")
+        say(f"S1 check 7 (2 ranks on the CPU against 2 on {dev}, "
+            f"{spec['small_n']} x 32, {len(keep)} queries): both modes "
+            f"agree (max |diff| {diff}), probed_k and nvisited equal")
+    with open(Path(spec["out"]) / f"rank{rank}.json", "w") as fh:
+        json.dump(rec, fh)
+
+
+def phase_sharded(torch, seed, qs, taus, main_qe, corpus_digest, dev,
+                  n=N, capacity=CAPACITY, ingest=N_INGEST, grow=N_GROW,
+                  small_n=8192):
+    """S1: ``S1_RANKS`` gloo ranks on ``dev`` (one card) through
+    ``distributed.run_ranks``; logs every rank's launches, collectives and
+    peak memory beside the card's name and power limit."""
+    import tempfile
+    from repro_torch.core import distributed as D
+    with tempfile.TemporaryDirectory() as out:
+        spec = dict(dev=str(dev), seed=seed, n=n, dim=DIM, capacity=capacity,
+                    ingest=ingest, grow=grow, small_n=small_n,
+                    qs=qs.cpu(), taus=taus.cpu(), main_qe=main_qe,
+                    digest=corpus_digest, out=out)
+        D.run_ranks(phase_sharded_rank, S1_RANKS, args=(spec,),
+                    backend="gloo", timeout=S1_TIMEOUT)
+        recs = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                for r in range(S1_RANKS)]
+    log(f"S1 ranks ({S1_RANKS} gloo ranks on one card, "
+        f"{smi_line() if str(dev).startswith('cuda') else dev}; they share "
+        "it, so no time here is a scaling figure):")
+    for r in recs:
+        ests = r["estimates"]
+        log(f"  rank {r['rank']}: launches {json.dumps(r['launches'])}, "
+            "peak "
+            + ("not measured" if r["peak_gib"] is None
+               else f"{r['peak_gib']:.3f} GiB")
+            + "; collectives a local / sync estimate: "
+            + ", ".join(f"{k} {v['collectives']} ({v['collective_ms']:.1f}"
+                        " ms)" for k, v in ests.items()))
+    return recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--s1-only", action="store_true",
+                    help="phases 1-2 and S1 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -2394,17 +2802,26 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
     corpus = vectors.make_corpus(g, N + N_INGEST + N_GROW, DIM)
+    corpus_digest = digest(corpus[::CORPUS_STRIDE])
     x = corpus[:N]
     qs0, taus0, _ = vectors.paper_query_workload(g, x, NQ)
     taus0 = taus0[torch.arange(NQ, device=dev),
                   torch.arange(NQ, device=dev) % taus0.shape[1]]
+    if args.s1_only:
+        nan = (float("nan"),) * 3
+        phase_sharded(torch, args.seed, qs0, taus0,
+                      dict.fromkeys(("@ N", "@ N+ingest", "@ grown"), nan),
+                      corpus_digest, dev)
+        lap("S1 sharded estimator")
+        return 0
     x_pad = torch.nn.functional.pad(x, (0, 0, 0, CAPACITY - N))
     index = lsh.build_index(x_pad, cfg, g, n_valid=N)
     res = phase_kernels(torch, corpus, qs0, taus0, index, cfg)
     del index, x_pad
     torch.cuda.empty_cache()
     lap("kernels")
-    counts, state, qs, taus = phase_main_path(torch, corpus, cfg, args.seed)
+    counts, state, qs, taus, main_qe = phase_main_path(torch, corpus, cfg,
+                                                       args.seed)
     lap("main path")
     phase_query_lanes(torch, state.index, qs, "2^21")
     phase_query_lanes(torch, every_row_live(torch, state.index), qs,
@@ -2430,7 +2847,7 @@ def main(argv=None) -> int:
     res["cache_insert"] = phase_cache_insert(torch, args.seed)
     phase_serving_agreement(torch, cfg, args.seed)
     torch.cuda.empty_cache()
-    lap("serving S1-S3")
+    lap("serving C1-C3")
     pq_counts, pstate, sstate = phase_pq_main_path(torch, corpus, qs, taus,
                                                    args.seed)
     res.update(phase_adc_kernels(torch, sstate, qs, taus))
@@ -2495,6 +2912,8 @@ def main(argv=None) -> int:
         phase_small_agreement(torch, cfg, args.seed, f"exact, d = {d}",
                               dim=d)
     lap("D1 corpora")
+    phase_sharded(torch, args.seed, qs, taus, main_qe, corpus_digest, dev)
+    lap("S1 sharded estimator")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

@@ -10,6 +10,11 @@ with ingest epochs adds ``epochs.params_epoch`` and ``epochs.n_ingested``
 (int32 stays int32, uint8 stays uint8). This is how the reference's
 "weights" — its LSH functions, built index and codebooks — reach the port.
 
+A sharded reference state carries the shard axis first on every array;
+:func:`sharded_state_from_numpy` takes one shard of it (a rank's state),
+and :func:`sharded_state_to_numpy` stacks the shards' states back into
+that layout.
+
 :func:`cache_to_numpy` / :func:`cache_from_numpy` carry an estimate cache
 the same way, field by field under the reference's names and dtypes
 (``qhash`` and ``snap_params`` uint32, ``valid`` and ``ref`` bool).
@@ -19,6 +24,8 @@ table (``dists`` int8, ``n`` int32, ``max_dist`` an int), and
 ``w1`` … ``b3`` float32, in the reference's (in, out) layout).
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -83,6 +90,21 @@ def state_to_numpy(state: ProberState) -> dict[str, np.ndarray]:
         out.update({k: v.cpu().numpy().astype(np.uint32)
                     for k, v in zip(EPOCH_KEYS, state.epochs)})
     return out
+
+
+def sharded_state_from_numpy(d: dict[str, np.ndarray], shard: int,
+                             device) -> ProberState:
+    """Shard ``shard`` of a sharded state (the shard axis first)."""
+    return state_from_numpy({k: np.asarray(v)[shard] for k, v in d.items()},
+                            device)
+
+
+def sharded_state_to_numpy(
+        states: Sequence[ProberState]) -> dict[str, np.ndarray]:
+    """The shards' states, in shard order, stacked on a leading shard axis;
+    the shards must have the same shapes."""
+    ds = [state_to_numpy(s) for s in states]
+    return {k: np.stack([d[k] for d in ds]) for k in ds[0]}
 
 
 def cache_from_numpy(d: dict[str, np.ndarray], device) -> EstimateCache:

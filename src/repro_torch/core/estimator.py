@@ -14,6 +14,9 @@ was not asked for); every later call runs where the state lives. Random
 draws take an explicit ``torch.Generator``; the PRP round keys of a batch
 (``rks`` (Q, L, 6)) may instead be passed in, which is how the parity tests
 replay the reference's key tree. Nothing here needs gradients.
+:func:`estimate_batch_pooled` is the pooled ("sync") stopping mode of a
+sharded index (``distributed.estimate_sharded``), and :func:`_ingest_core`
+the update body that ``distributed.update_sharded`` shares.
 """
 from __future__ import annotations
 
@@ -123,6 +126,23 @@ def _pq_args(state: ProberState, qs: torch.Tensor,
             "pq_packed": pq.packed}
 
 
+def estimate_batch_pooled(state: ProberState, qs: torch.Tensor,
+                          taus: torch.Tensor, cfg: ProberConfig,
+                          rks: torch.Tensor, group,
+                          with_stats: bool = False):
+    """The distributed "sync" stopping mode: :func:`estimate_batch` on this
+    rank's shard with the Chernoff statistics of every slab step pooled
+    over the process ``group`` (one ``all_reduce`` a step, see
+    :func:`prober.estimate_batch`), so the ε-test sees the GLOBAL
+    selectivity. Every rank of ``group`` must make the same call, with its
+    own shard and its own round keys ``rks`` (Q, L, 6). Returns the global
+    (Q,) estimates, the same on every rank; ``with_stats`` adds the pooled
+    ``probed_k`` (Q, L) and ``nvisited`` (Q,)."""
+    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
+                                 with_stats=with_stats, group=group,
+                                 **_pq_args(state, qs, cfg))
+
+
 def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
                          taus: torch.Tensor, cfg: ProberConfig,
                          rks: torch.Tensor | None = None,
@@ -169,8 +189,19 @@ def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
     if nv + nn > cap:
         state = _grow(state, updates.next_capacity(cap, nv + nn))
     x_pad, n_new = updates._pad_batch(x_new.to(state.x.device))
+    return _ingest_core(state, x_pad, n_new, cfg, nv)
+
+
+def _ingest_core(state: ProberState, x_pad: torch.Tensor, n_new: int,
+                 cfg: ProberConfig, nv: int, group=None) -> ProberState:
+    """One fixed-shape §5 update, the body of :func:`update` and of
+    ``distributed.update_sharded``: write the first ``n_new`` rows of the
+    padded batch ``x_pad`` after the ``nv`` live ones, run Alg. 7 (with
+    W pooled over the process ``group`` of a sharded index) and, on the PQ
+    path, Alg. 8; bump attached epochs. The state must have room."""
     x = updates._write_rows(state.x, x_pad, nv, n_new)
-    index = updates._lsh_ingest(state.index, x_pad, n_new, cfg, nv)
+    index = updates._lsh_ingest(state.index, x_pad, n_new, cfg, nv,
+                                group=group)
     pq = None if state.pq is None else \
         updates._pq_ingest(state.pq, x, x_pad, n_new, nv)
     ep = None if state.epochs is None else updates._epoch_ingest(

@@ -24,7 +24,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import collectives
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
 
@@ -86,10 +88,16 @@ def project(params: LSHParams, x: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_w(raw: torch.Tensor, n_regions: int,
-                n_valid: torch.Tensor | int | None = None) -> torch.Tensor:
+                n_valid: torch.Tensor | int | None = None,
+                group=None) -> torch.Tensor:
     """Paper Alg. 7 ``normalizeW``: per-function width from the min/max of
     the live raw projections, so each function yields ~``n_regions``
-    values. Rows ``>= n_valid`` (capacity padding) are masked out."""
+    values. Rows ``>= n_valid`` (capacity padding) are masked out.
+
+    With a ``torch.distributed`` process ``group`` (one rank per shard),
+    the extremes are pooled over its ranks first: one ``all_reduce(MIN)``
+    of ``cat(lo, -hi)``, which is exact, so W is bit-identical on every
+    rank and equals the W of the union of the ranks' live rows."""
     if n_valid is None:
         lo, hi = raw.amin(0), raw.amax(0)
     else:
@@ -97,6 +105,10 @@ def normalize_w(raw: torch.Tensor, n_regions: int,
                  < n_valid)[:, None]
         lo = torch.where(valid, raw, torch.inf).amin(0)
         hi = torch.where(valid, raw, -torch.inf).amax(0)
+    if group is not None:
+        ext = torch.cat([lo, -hi])
+        collectives.all_reduce(ext, dist.ReduceOp.MIN, group=group)
+        lo, hi = ext[:lo.shape[0]], -ext[lo.shape[0]:]
     return torch.clamp_min((hi - lo) / float(n_regions), 1e-6)
 
 

@@ -36,14 +36,20 @@ The queries' hash and their Hamming distances to every bucket are one
 ``ops.central_qualify`` call: ring 0 is at most one bucket, the one whose
 code equals the lane's, so the count reads that bucket's CSR slice and no
 ring-0 cumsum row.
+
+Pooled ("sync") stopping for a sharded index (``core/distributed.py``):
+with a ``torch.distributed`` process group, one ``all_reduce`` at setup
+and one per slab step pool the lanes' Chernoff statistics over the ranks'
+shards, so every rank stops on the global selectivity, in lockstep.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.core import lsh, pq as pqmod, sampling
+from repro_torch.core import collectives, lsh, pq as pqmod, sampling
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
 # the PRP of Alg. 2 lives beside the slab kernel's plain version
@@ -116,10 +122,18 @@ def _bit_length(v: torch.Tensor) -> torch.Tensor:
 
 def _table_setup(view: TableView, ham: torch.Tensor, qcodes: torch.Tensor,
                  rks: torch.Tensor, tid: torch.Tensor, qual: ops.Qual,
-                 central_exact: bool, cfg: ProberConfig):
+                 central_exact: bool, cfg: ProberConfig, group=None):
     """Loop-free ring construction for every lane: ring cumsums, the exact
     central count (Alg. 3) of the lanes' codes ``qcodes``, PRP domains and
-    Chernoff schedule anchors. Returns ``(ctx, est0, visited0)``."""
+    Chernoff schedule anchors. Returns ``(ctx, est0, visited0)``.
+
+    With a process ``group`` (pooled stopping) one ``all_reduce`` makes the
+    central count, its sample count, the schedule anchors and caps global,
+    and the visit budget is ``max_visit`` times the group's size (the same
+    total budget as local stopping). The PRP domains and caps stay local:
+    each rank samples only its own candidates. ``totals_f`` stays local
+    too: each rank's ring estimate |N_k,s|·p̂_s is unbiased under its own
+    uniform sampling, and their sum is the global ring count."""
     n_rings = view.bucket_codes.shape[-1]
     cums = ring_cumsums(view, ham, n_rings)
     est0, visited0 = _count_central(view, tid, qcodes, qual, central_exact,
@@ -130,10 +144,20 @@ def _table_setup(view: TableView, ham: torch.Tensor, qcodes: torch.Tensor,
     nbits = torch.where(caps <= 1, 0, _bit_length((caps - 1).clamp_min(1)))
     prings = torch.ones_like(nbits) << nbits
     w_caps = torch.minimum(torch.ceil(cfg.s_max * totals_f), caps.float())
-    first_targets = torch.ceil(cfg.s1 * totals_f).clamp_min(1.0)
+    totals_sched, visit_budget = totals_f, cfg.max_visit
+    if group is not None:
+        # float32 sums of counts: exact below 2^24
+        pooled = torch.cat([est0[:, None], visited0[:, None].float(),
+                            totals_f, w_caps], 1)
+        collectives.all_reduce(pooled, group=group)
+        est0, visited0 = pooled[:, 0], pooled[:, 1].int()
+        totals_sched = pooled[:, 2:2 + n_rings]
+        w_caps = pooled[:, 2 + n_rings:]
+        visit_budget = cfg.max_visit * dist.get_world_size(group)
+    first_targets = torch.ceil(cfg.s1 * totals_sched).clamp_min(1.0)
     ctx = LaneCtx(cums=cums, rks=rks, prings=prings, caps=caps, nbits=nbits,
                   totals_f=totals_f, w_caps=w_caps,
-                  first_targets=first_targets, visit_budget=cfg.max_visit)
+                  first_targets=first_targets, visit_budget=visit_budget)
     return ctx, est0, visited0
 
 
@@ -155,13 +179,18 @@ def _row(t: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
 
 def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
                tid: torch.Tensor, view: TableView, qual: ops.Qual,
-               cfg: ProberConfig) -> dict:
+               cfg: ProberConfig, group=None) -> dict:
     """One progressive-sampling slab (Alg. 2 body) for the active lanes.
 
     ``s`` and ``small`` hold the active lanes' rows of the loop state and
     of the per-lane constants; ``lanes`` (A,) are their lane ids, ``tid``
     their tables. The visit budget counts the in-progress ring's samples
     every slab, and a budget hit folds the partial ring's estimate.
+
+    With a process ``group`` (pooled stopping) ONE ``all_reduce`` of the
+    (A, 5) stack ``[w, w', exhausted, 1, ring_est]`` pools the lanes'
+    Chernoff statistics, exhaustion votes and ring estimates; every
+    stopping quantity below reads the pooled values.
     """
     chunk = cfg.chunk
     n_rings = view.bucket_codes.shape[-1]
@@ -176,10 +205,17 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
     p_ring = _row(small.prings, row)
     wq = s["wq"] + wq_add
     w = s["w"] + w_add
-    exhausted = (ci + 1) * chunk >= p_ring
+    exhausted = (ci + 1) * chunk >= p_ring      # this rank's domain walked
     wf = w.float()
     ring_est = _row(small.totals_f, row) * wq / wf.clamp_min(1.0)
-    p_hat = wq / wf.clamp_min(1.0)
+    wq_pool = wq
+    if group is not None:
+        pooled = torch.stack([wf, wq, exhausted.float(), torch.ones_like(wf),
+                              ring_est], 1)
+        collectives.all_reduce(pooled, group=group)
+        wf, wq_pool, ring_est = pooled[:, 0], pooled[:, 1], pooled[:, 4]
+        exhausted = pooled[:, 2] >= pooled[:, 3]
+    p_hat = wq_pool / wf.clamp_min(1.0)
     w_cap = _row(small.w_caps, row)
     at_schedule = (wf >= s["target"]) | (wf >= w_cap)
     if not cfg.schedule_checks:
@@ -209,10 +245,16 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
 
 def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                lane_t: torch.Tensor, qual: ops.Qual,
-               cfg: ProberConfig) -> dict:
+               cfg: ProberConfig, group=None) -> dict:
     """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
     steps over the active lanes, one host sync per block, then compaction.
-    Updates ``state`` in place and returns it."""
+    Updates ``state`` in place and returns it.
+
+    Pooled stopping (``group``) keeps this schedule: ``done`` derives only
+    from pooled values (the setup's and each step's ``all_reduce``, whose
+    result is the same on every rank), so every rank selects the same
+    active lanes, runs the same number of steps and passes collectives of
+    the same shape, in lockstep."""
     block = max(cfg.lane_block, 1)
     active = torch.nonzero(~state["done"]).squeeze(1)
     while active.numel():
@@ -225,7 +267,8 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                              first_targets=ctx.first_targets[active])
         tid = lane_t[active]
         for _ in range(block):
-            new = _slab_step(s, ctx, small, active, tid, view, qual, cfg)
+            new = _slab_step(s, ctx, small, active, tid, view, qual, cfg,
+                             group)
             s = {kk: torch.where(s["done"], s[kk], new[kk]) for kk in s}
         for kk, v in s.items():
             state[kk][active] = v
@@ -261,7 +304,7 @@ def _make_qual(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
 def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
                    taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
                    with_stats: bool = False, pq_codes=None, pq_luts=None,
-                   pq_resid=None, pq_packed=None):
+                   pq_resid=None, pq_packed=None, group=None):
     """Batched Alg. 1–3 over Q queries: ``qs`` (Q, d), ``taus`` (Q,), ``rks``
     (Q, L, 6) round keys. Returns the (Q,) estimates, each the mean of its
     L per-table estimates; with ``with_stats`` also the deepest folded ring
@@ -270,7 +313,13 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     With ``pq_codes`` (C, M) uint8 and ``pq_luts`` (the batch's (Q, M, Kc)
     float LUT stack, or a batched ``QuantLUT``) candidates qualify by ADC
     as the config routes them; ``pq_resid`` (C,) serves banded
-    qualification and ``pq_packed`` (C, M/2) the 4-bit codes."""
+    qualification and ``pq_packed`` (C, M/2) the 4-bit codes.
+
+    ``group`` (a ``torch.distributed`` process group; the index is this
+    rank's shard) switches on pooled ("sync") stopping: one ``all_reduce``
+    at setup and one per slab step (:func:`_table_setup`,
+    :func:`_slab_step`), and the estimates are global, the same on every
+    rank. Without it no collective runs."""
     dev = x.device
     nq = qs.shape[0]
     nl = index.n_tables
@@ -288,10 +337,10 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
                       pq_resid, pq_packed)
     ctx, est0, visited0 = _table_setup(
         view, ham, qcodes, rks.to(dev, torch.int64).reshape(nq * nl, 6),
-        lane_t, qual, qual.codes is None or cfg.pq_exact_central, cfg)
+        lane_t, qual, qual.codes is None or cfg.pq_exact_central, cfg, group)
     del ham
     state = _init_state(ctx, est0, visited0, n_rings)
-    state = _run_lanes(state, ctx, view, lane_t, qual, cfg)
+    state = _run_lanes(state, ctx, view, lane_t, qual, cfg, group)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests

@@ -50,14 +50,17 @@ def _write_rows(dst: torch.Tensor, src: torch.Tensor, start: int,
 
 
 def _lsh_ingest(index: lsh.LSHIndex, x_new: torch.Tensor, n_new: int,
-                cfg: ProberConfig, n_valid: int) -> lsh.LSHIndex:
+                cfg: ProberConfig, n_valid: int, group=None) -> lsh.LSHIndex:
     """Alg. 7 at fixed shapes: every output shape equals the input capacity.
-    ``n_valid`` is the index's live count, known on the host."""
+    ``n_valid`` is the index's live count, known on the host. With a
+    process ``group`` (a sharded index) W is renormalised from the live
+    projections of every rank (``lsh.normalize_w``)."""
     params = index.params
     raw_new = lsh.project_raw(params, x_new)
     raw_all = _write_rows(index.raw, raw_new, n_valid, n_new)
     nv2 = n_valid + n_new
-    params = params._replace(w=lsh.normalize_w(raw_all, cfg.n_regions, nv2))
+    params = params._replace(w=lsh.normalize_w(raw_all, cfg.n_regions, nv2,
+                                               group=group))
     codes = lsh._table_codes(raw_all, params, cfg, nv2)
     order, bcodes, starts, sizes, nb = lsh._build_tables(codes, nv2)
     return lsh.LSHIndex(params=params, raw=raw_all, codes=codes, order=order,

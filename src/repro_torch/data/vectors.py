@@ -87,6 +87,30 @@ def paper_query_workload(generator: torch.Generator, x: torch.Tensor,
     return queries, taus, cards
 
 
+def skewed_shards(rng: np.random.Generator, shards: int):
+    """The skewed partition on which pooled ("sync") stopping beats local
+    stopping (the reference's ``test_8dev_sync_beats_local_on_skewed_shards``
+    split): shard 0, the first block of rows, is the query cluster; every
+    other shard is a shell just outside τ plus a few true matches just
+    inside it. Returns numpy ``(x (1000·shards, 16), queries (6, 16), taus
+    (6,))``, float32, to be split into contiguous blocks."""
+    d, n_shard, tau, n_sp = 16, 1000, 3.0, 10
+
+    def shell(n, r_lo, r_hi):
+        v = rng.normal(size=(n, d))
+        v /= np.linalg.norm(v, axis=1, keepdims=True)
+        return (v * rng.uniform(r_lo, r_hi, size=(n, 1))).astype(np.float32)
+
+    parts = [shell(n_shard, 0.0, tau * 1.05)]
+    for _ in range(1, shards):
+        parts.append(np.concatenate(
+            [shell(n_shard - n_sp, tau * 1.05, tau * 1.35),
+             shell(n_sp, tau * 0.80, tau * 0.98)]))
+    qs = (np.zeros((6, d), np.float32)
+          + 0.01 * rng.standard_normal((6, d)).astype(np.float32))
+    return np.concatenate(parts), qs, np.full((6,), tau, np.float32)
+
+
 def load(name: str, generator: torch.Generator | None = None,
          n_queries: int = 32, scale: float = 1.0,
          device="cuda") -> VectorDataset:

@@ -13,9 +13,22 @@ codes) and the Hamming distances that both ball sums read (the lookup's
 freshness check and the insert's snapshots), and one ``cache_insert``
 launch writes the misses back.
 
+With a process ``group`` the coalescer serves off a SHARDED index (this
+rank's shard from ``distributed.build_sharded``): every rank makes the same
+``submit`` / ``ingest`` / ``flush`` calls (SPMD), a flush runs
+``distributed.estimate_sharded`` with the chosen stopping ``mode``
+(``"local"`` or ``"sync"``), and every ingest chunk goes through
+``distributed.update_sharded`` (round-robin, W pooled), with the per-shard
+live counts kept on the host. Before each flush batch and each ingest chunk
+one ``all_reduce`` checks that every rank is at the same step with the same
+data, and raises otherwise: diverged ranks are never served. The estimate
+cache serves local (unsharded) coalescers only: it keys on one process's
+index.
+
 Round keys: flush ``i`` of a batch of ``n`` probed lanes takes
 ``round_keys(i, n)`` (n, L, 6); by default they are drawn from
-``generator``. The parity tests pass the reference's key tree
+``generator`` (seeded per rank when sharded: each rank draws its own).
+The parity tests pass the reference's key tree
 (``fold_in(key, i)``), which lines up because the padding is the
 reference's: ``max_batch`` rounded up to a power of two, a flush padded to
 ``next_pow2(n)`` and a cached flush's misses to ``next_pow2(misses)``, with
@@ -24,14 +37,17 @@ zero rows at tau 0.
 from __future__ import annotations
 
 import dataclasses
+import zlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.cache import estimate_cache as C
 from repro_torch.cache.epochs import U32, ball_sums_from_ham
-from repro_torch.core import estimator as E, lsh, updates
+from repro_torch.core import collectives, distributed as D, estimator as E
+from repro_torch.core import lsh, updates
 from repro_torch.core.config import ProberConfig
 
 RoundKeys = Callable[[int, int], torch.Tensor]
@@ -72,13 +88,22 @@ class CardinalityCoalescer:
     points and applies them in chunks of ``cfg.ingest_chunk``, eagerly and
     before every flush. ``cache_size`` and ``reuse_tol`` switch on the
     estimate cache; ``cache_stats`` counts hits, misses, stale entries,
-    evictions and lookups. Serves the state's device."""
+    evictions and lookups. Serves the state's device. ``group`` (e.g.
+    ``torch.distributed.group.WORLD``) serves a sharded state with the
+    stopping ``mode``; None serves a local one."""
 
     def __init__(self, state: E.ProberState, cfg: ProberConfig,
                  generator: torch.Generator | None = None,
                  max_batch: int = 256, cache_size: int = 0,
                  reuse_tol: float = 0.0,
-                 round_keys: RoundKeys | None = None):
+                 round_keys: RoundKeys | None = None,
+                 group=None, mode: str = "local"):
+        if mode not in ("local", "sync"):
+            raise ValueError(f"mode must be 'local' or 'sync', got {mode!r}")
+        if cache_size > 0 and group is not None:
+            raise ValueError("the estimate cache serves the local "
+                             "(unsharded) path only")
+        self._group, self.mode = group, mode
         if round_keys is None:
             if generator is None:
                 raise ValueError("pass generator= or round_keys=")
@@ -102,7 +127,7 @@ class CardinalityCoalescer:
         self.max_batch = updates.next_pow2(max_batch)
         self.pending: list[CardRequest] = []
         self._next_rid = 0
-        self._n_flushes = 0
+        self._n_flushes = self._n_ingests = 0
         self._answered: dict[int, CardResult] = {}
         self._ingest_buf: Optional[np.ndarray] = None
 
@@ -121,7 +146,10 @@ class CardinalityCoalescer:
                 params_epoch=(st.epochs.params_epoch + 1) & U32))
             self._check_ingest = True
         self._state = st
-        self._n_valid = int(st.index.n_valid)
+        nv = int(st.index.n_valid)
+        # a sharded state: every shard's live count, in rank order
+        self._n_valid = nv if self._group is None else \
+            D.shard_counts(nv, self._group, st.x.device)
 
     def submit(self, q, tau) -> CardRequest:
         req = CardRequest(rid=self._next_rid, q=np.asarray(q),
@@ -158,6 +186,13 @@ class CardinalityCoalescer:
         buf = self._ingest_buf
         part, rest = buf[:k], buf[k:]
         self._ingest_buf = rest if len(rest) else None
+        if self._group is not None:
+            self._check_same(1, self._n_ingests, len(part), part)
+            self._n_ingests += 1
+            self._state, self._n_valid = D.update_sharded(
+                self._state, part, self.cfg, group=self._group,
+                n_valid=self._n_valid)
+            return
         self._state = E.update(self._state, torch.from_numpy(part), self.cfg,
                                n_valid=self._n_valid)
         self._n_valid += len(part)
@@ -193,16 +228,47 @@ class CardinalityCoalescer:
                     r.probed_k, r.nvisited = pks[i], nvs[i]
             else:
                 dev = self._state.x.device
-                ests = E.estimate_batch(
-                    self._state, torch.from_numpy(qs).to(dev),
-                    torch.from_numpy(taus).to(dev), self.cfg,
-                    rks=self._round_keys(flush_index, p)).cpu().numpy()
+                tqs = torch.from_numpy(qs).to(dev)
+                ttaus = torch.from_numpy(taus).to(dev)
+                rks = self._round_keys(flush_index, p)
+                if self._group is None:
+                    ests = E.estimate_batch(self._state, tqs, ttaus, self.cfg,
+                                            rks=rks)
+                else:
+                    self._check_same(0, flush_index, n, qs, taus)
+                    ests = D.estimate_sharded(self._state, tqs, ttaus,
+                                              self.cfg, rks, group=self._group,
+                                              mode=self.mode)
+                ests = ests.cpu().numpy()
                 prov = ["probe"] * n
             for i, r in enumerate(batch):
                 r.est = float(ests[i])
                 r.provenance = prov[i]
                 out[r.rid] = CardResult(r.est, prov[i])
         return out
+
+    def _check_same(self, step: int, index: int, rows: int,
+                    *arrays: np.ndarray):
+        """Raise unless every rank is at the same SPMD step with the same
+        data: one ``all_reduce(MIN)`` over ``[v, -v]``, v = (step: 0 a
+        flush batch, 1 an ingest chunk; its index; its rows; the CRC-32
+        of ``arrays``), all exact in float64. Every check reduces this one
+        shape, so a rank at a flush and a rank at an ingest fail the check
+        instead of hanging."""
+        crc = 0
+        for a in arrays:
+            crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+        v = torch.tensor([step, index, rows, crc],
+                         dtype=torch.float64, device=self._state.x.device)
+        both = torch.cat([v, -v])
+        collectives.all_reduce(both, dist.ReduceOp.MIN, group=self._group)
+        lo, hi = both[:4].tolist(), (-both[4:]).tolist()
+        if lo != hi:
+            what = ("flushed different batches", "ingested different chunks")
+            raise RuntimeError(
+                f"ranks {what[step] if lo[0] == hi[0] else 'diverged'} "
+                "(step, index, rows, CRC-32 range over "
+                f"{list(zip(lo, hi))})")
 
     def _flush_cached(self, qs: np.ndarray, taus: np.ndarray, n: int,
                       flush_index: int):
