@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed S] [--s1-only]
+    python3 chip_smoke.py [--seed S] [--s1-only | --serve-only]
 
 ``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
-draws, without the main path's q-errors) and prints no result lines.
+draws, without the main path's q-errors) and prints no result lines;
+``--serve-only`` runs phases 1-2, L1 and L2 alone and prints none either.
 
 Phases, in order; each raises on failure:
 
@@ -156,6 +157,43 @@ S1. The main path's corpus, queries and ingests over four ranks of one
     the main path's, wall ms at rank 0, collectives and their ms, ingest
     points/s, and per rank the launches and peak memory. The ranks share
     one card: no time there is a scaling figure.
+
+Then the semantic-operator serving path, through the CLI a user runs:
+
+L1. ``repro_torch.launch.serve.main`` with ``--arch qwen2-7b --scale full
+    --corpus 1000000 --emb-dim 128 --requests 8 --slots 4 --max-len 256
+    --max-calls 64``: the dense LM at full width (7,615,616,512
+    parameters, bfloat16, random weights from the seed) behind
+    ``ServeEngine``, the ``SemanticPlanner`` over a SIFT1M-shaped corpus,
+    each request's exact ranking through ``l2dist``. Launch counts zeroed
+    before and read after; fatal: an operator served and one refused,
+    every finished request 1-4 tokens, ``query_lanes``, ``central_qualify``
+    and ``slab_qualify`` launched, the replaced kernels not. Then the
+    planner's kernels at the CLI's shapes (its ProberConfig, one query an
+    estimate), launch counts restored after: the planner's index rebuilt
+    from the seed, each request's ``l2dist`` (1M x 128 x 1) against
+    ``ref.l2dist`` (rtol/atol 1e-5), and its operator, the radius moved to
+    the midpoint of the target-th and next squared distance, on a CPU copy
+    (plain versions) against the card with the same round keys: equal
+    integer-valued estimates, ``probed_k`` and ``nvisited``, the rest
+    within rtol 1e-5, on the operators tie-free (at least 6 of 8). Then at
+    full width: teacher-forced ``decode_step`` against ``forward`` on 16
+    tokens and SDPA (the card's attention route) against plain ``_sdpa``
+    (prefill and decode shapes) within bfloat16 tolerances fixed in the
+    code (``L1_LOGIT_TOL``, ``L1_SDPA_TOL``), greedy tokens equal where
+    the top-2 gap exceeds the logit tolerance; a decode step beside its
+    byte bound (and with plain ``_sdpa`` patched in as the route), a
+    prefill, both attention forms (and the SDPA backend's kernels), and a
+    profile of each.
+L2. The same CLI with ``--scale smoke --shards 4`` in ``sync`` and
+    ``local`` mode: four gloo ranks on the card plan every operator over
+    the 1M corpus in lockstep; fatal: the plans equal on every rank (and
+    the sharded coalescer's SPMD check, which raises). Logs collectives
+    an estimate, wall and launches a rank. Then the sync run's operators
+    on four ranks again: each rank's 250,000-row shard of the planner's
+    index, the checks of L1 on a CPU copy of the shard against the card,
+    in sync mode (``estimate_batch_pooled``, the group's collectives on
+    both sides).
 
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
@@ -2772,11 +2810,391 @@ def phase_sharded(torch, seed, qs, taus, main_qe, corpus_digest, dev,
     return recs
 
 
+# L1/L2: the semantic-operator serving path, through the CLI a user
+# runs (``python -m repro_torch.launch.serve``): qwen2-7b at full width on
+# a SIFT1M-shaped corpus (N = 1M, d = 128), then the planner sharded over
+# four gloo ranks on the one card. L1_MAX_NEW is the CLI's max_new.
+L1_ARGS = ["--arch", "qwen2-7b", "--scale", "full", "--corpus", str(N),
+           "--emb-dim", str(DIM), "--requests", "8", "--slots", "4",
+           "--max-len", "256", "--max-calls", "64"]
+L1_MAX_NEW, L1_PARAMS, L1_CHECK_LEN = 4, 7_615_616_512, 16
+# bfloat16 tolerances, fixed before the first run on the card: logits are
+# O(1) (RMS ~1.2, |logit| < 8, where a bfloat16 step is 1/32) and decode
+# (M = 1 products) rounds otherwise than forward (M = 16); at this width on
+# the CPU 2 and 4 layers differed by 0.039 and 0.047, so 28 layers get
+# 0.25. Attention outputs are < 4, where a bfloat16 step is 1/64: 4 steps.
+L1_LOGIT_TOL, L1_SDPA_TOL = 0.25, 0.0625
+L2_ARGS = L1_ARGS[:2] + ["--scale", "smoke"] + L1_ARGS[4:] + ["--shards",
+                                                              "4"]
+L1_AGREE_MIN = 6       # of the 8 operators, tie-free ones to compare
+
+
+def operator_pairs(torch, corpus, queries):
+    """The serve CLI's operators ``queries`` (document, target count,
+    radius) as ``(qs, taus, exact counts, l2dist max |diff|)``: each
+    request's
+    ``ops.l2dist`` against ``ref.l2dist`` (rtol/atol 1e-5), and each radius
+    moved to the midpoint of the target-th and next squared distance, so
+    the exact count is the operator's and no row lies on the sphere.
+    Raises unless the plain distances give the CLI's radius (the corpus is
+    the CLI's)."""
+    from repro_torch.kernels import ops, ref
+    qs, taus, exact, err = [], [], [], 0.0
+    for doc, target, tau in queries:
+        q = corpus[doc][None].contiguous()
+        got, want = ops.l2dist(corpus, q), ref.l2dist(corpus, q)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = max(err, float((got - want).abs().max()))
+        d2 = torch.sort(want[:, 0]).values
+        k = min(target, corpus.shape[0] - 1)
+        if k + 1 >= corpus.shape[0] or not abs(
+                float(d2[k].sqrt()) - tau) <= 1e-5 * tau:
+            raise AssertionError(f"operator on document {doc}: radius {tau} "
+                                 "is not the corpus's target-th distance")
+        qs.append(q)
+        taus.append(((d2[k] + d2[k + 1]) / 2).sqrt())
+        exact.append(k + 1)
+    return torch.cat(qs), torch.stack(taus), exact, err
+
+
+def planner_agreement(torch, tag, st, corpus, queries, cfg, keys,
+                      group=None):
+    """The planner's kernels at its own shapes: :func:`operator_pairs` on
+    ``queries``, then each tie-free operator alone (Q = 1, as the planner
+    estimates) on a CPU copy of ``st`` (plain versions) and on the card
+    with the same round keys ``keys(i)`` (1, L, 6): equal integer-valued
+    estimates, ``probed_k`` and ``nvisited``, the rest within rtol 1e-5.
+    With a ``group`` (every rank calls it, on its shard) the estimates are
+    sync mode's, the group's collectives on both sides, and the tie filter
+    holds over every shard. The launch counts are restored after. Returns
+    a record for the log."""
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.core import estimator as E
+    from repro_torch.kernels import ops
+    saved, t0 = dict(ops.LAUNCHES), time.perf_counter()
+    qs, taus, exact, l2err = operator_pairs(torch, corpus, queries)
+    ok = tie_free(torch, st.x[:int(st.n_valid)], qs, taus,
+                  st.index.params).to(torch.int32)
+    if group is not None:
+        dist.all_reduce(ok, dist.ReduceOp.MIN, group=group)
+    keep = torch.nonzero(ok).squeeze(1).tolist()
+    if len(keep) < L1_AGREE_MIN:
+        raise AssertionError(f"{tag}: {len(keep)} of {len(queries)} "
+                             f"operators tie-free, want {L1_AGREE_MIN}")
+    cpu = bridge.state_from_numpy(bridge.state_to_numpy(st), "cpu")
+
+    def run(s, q, t, rks):
+        if group is None:
+            return E.estimate_batch_stats(s, q, t, cfg, rks=rks)
+        return E.estimate_batch_pooled(s, q, t, cfg, rks, group,
+                                       with_stats=True)
+
+    diff, ests = 0.0, []
+    for i in keep:
+        rks = keys(i)
+        want = run(cpu, qs[i:i + 1].cpu(), taus[i:i + 1].cpu(), rks)
+        got = [t.cpu() for t in run(st, qs[i:i + 1], taus[i:i + 1],
+                                    rks.to(st.x.device))]
+        whole = want[0] == want[0].round()
+        if not torch.equal(got[0][whole], want[0][whole]):
+            raise AssertionError(f"{tag} operator {i}: integer-valued "
+                                 "estimates differ")
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+        for what, a, b in zip(("probed_k", "nvisited"), got[1:], want[1:]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag} operator {i}: {what} differs")
+        diff = max(diff, float((got[0] - want[0]).abs().max()))
+        ests.append(float(got[0][0]))
+    ops.LAUNCHES.update(saved)
+    return dict(kept=keep, l2dist_err=l2err, est_diff=diff, ests=ests,
+                exact=[exact[i] for i in keep],
+                seconds=time.perf_counter() - t0)
+
+
+def phase_lm_serving(torch, seed, dev="cuda"):
+    """L1: ``launch.serve.main`` at full width on ``dev``, launch counts
+    zeroed just before and read just after; then the model's own checks at
+    full width (:func:`lm_checks`). Returns the CLI's record."""
+    import gc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    stats: dict = {}
+    served, refused = serve.main(L1_ARGS + ["--seed", str(seed),
+                                            "--device", str(dev)],
+                                 stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eng = stats["engine"]
+    log(f"L1 serve CLI ({smi_line()}): {served} LLM calls served, {refused} "
+        f"operators refused, {wall:.1f} s in main; {stats['params']:,} "
+        f"parameters, {stats['param_bytes'] / 2 ** 30:.3f} GiB, init "
+        f"{stats['init_s']:.3f} s; index build {stats['planner_build_s']:.3f}"
+        f" s; planner {1e3 * stats['plan_s'] / stats['n_plans']:.1f} ms an "
+        f"estimate ({stats['n_plans']}); prefill "
+        f"{1e3 * eng['prefill_s'] / max(eng['prefills'], 1):.2f} ms a "
+        f"request ({eng['prefills']}, host clock, argmax read); decode "
+        f"{1e3 * eng['decode_s'] / max(eng['steps'], 1):.2f} ms a step "
+        f"({eng['steps']} steps, {eng['tokens']} tokens, "
+        f"{eng['tokens'] / max(eng['decode_s'], 1e-9):.1f} tokens/s); peak "
+        f"{peak:.3f} GiB; plans {stats['plans']}")
+    log(f"L1 launches over the phase: {json.dumps(counts)}")
+    if served < 1 or refused < 1:
+        raise SystemExit(f"L1: {served} served, {refused} refused; want at "
+                         "least one of each")
+    bad = [n for n in stats["new_tokens"] if not 1 <= n <= L1_MAX_NEW]
+    if bad or len(stats["new_tokens"]) != served:
+        raise SystemExit(f"L1: finished requests with {bad} tokens")
+    if stats["params"] != L1_PARAMS:
+        raise SystemExit(f"L1: {stats['params']} parameters, want "
+                         f"{L1_PARAMS}")
+    missing = [k for k in PATH_KERNELS if counts[k] == 0]
+    if missing or counts["l2dist"] < len(stats["plans"]):
+        raise SystemExit(f"L1: {missing} not launched, or l2dist "
+                         f"{counts['l2dist']} < one a request")
+    none_replaced(counts, "L1")
+    from argparse import Namespace
+    from repro_torch.core import estimator as E
+    corpus, _ = serve.draw_corpus(Namespace(seed=seed, corpus=N,
+                                            emb_dim=DIM), torch.device(dev))
+    st = E.build(corpus, serve.PLANNER_CFG,
+                 torch.Generator(device=dev).manual_seed(seed), device=dev)
+    gk = torch.Generator().manual_seed(seed + 13)
+    agree = planner_agreement(
+        torch, "L1 planner", st, corpus, stats["queries"], serve.PLANNER_CFG,
+        lambda i: E.draw_round_keys(gk, 1, serve.PLANNER_CFG.n_tables,
+                                    "cpu"))
+    log(f"L1 planner at the CLI's shapes (1M x 128, L = 2, K = 8, budgets "
+        f"1024, one query an estimate): l2dist of {len(stats['queries'])} "
+        f"requests vs ref.l2dist max |diff| {agree['l2dist_err']}; operators "
+        f"{agree['kept']} tie-free, CPU and card agree (max |diff| "
+        f"{agree['est_diff']}, estimates {agree['ests']}, exact "
+        f"{agree['exact']}), probed_k and "
+        f"nvisited equal; {agree['seconds']:.1f} s")
+    del corpus, st
+    lm_checks(torch, seed, dev)
+    return stats
+
+
+def lm_checks(torch, seed, dev="cuda"):
+    """qwen2-7b at full width on the card: teacher-forced ``decode_step``
+    against ``forward`` on one 16-token sequence and the SDPA route against
+    plain ``_sdpa`` (L1_LOGIT_TOL, L1_SDPA_TOL; greedy tokens equal where
+    the top-2 gap exceeds L1_LOGIT_TOL); CUDA-event times of a decode step
+    (4 slots x 256) beside its byte bound, of a prefill, and of both
+    attention forms; a profile of each."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import layers as L, transformer as T
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(dev)
+    cfg = configs.get_config("qwen2-7b")
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = T.init(cfg, g, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab, (1, L1_CHECK_LEN), generator=g,
+                         device=dev)
+    with torch.no_grad():
+        full = T.forward(model, {"tokens": toks}, cfg)[0]
+    cache = T.init_cache(cfg, 1, L1_CHECK_LEN, device=dev)
+    outs = []
+    for t in range(L1_CHECK_LEN):
+        logits, cache = T.decode_step(model, cache, toks[:, t], cfg)
+        outs.append(logits[0])
+    dec = torch.stack(outs)
+    diff = float((dec - full).abs().max())
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > L1_LOGIT_TOL
+    same = (dec.argmax(-1) == full.argmax(-1))
+    log(f"L1 decode vs forward (qwen2-7b full width, {L1_CHECK_LEN} tokens, "
+        f"bfloat16): max |diff| {diff:.6f} (tol {L1_LOGIT_TOL}); greedy "
+        f"tokens equal at {int(same.sum())} of {L1_CHECK_LEN} positions, "
+        f"{int(clear.sum())} with a top-2 gap above the tolerance; init "
+        f"{init_s:.3f} s")
+    if not diff <= L1_LOGIT_TOL or not bool(same[clear].all()):
+        raise SystemExit("L1: decode_step disagrees with forward")
+    with torch.no_grad():
+        x = L.apply_norm(model.layers[0].ln1,
+                         L.embed(model.embed, toks, cfg), cfg)
+        pos = torch.arange(L1_CHECK_LEN, device=dev)
+        q, k, v = L.qkv_project(model.layers[0].attn, x, cfg, pos[None])
+    causal = (pos[:, None] >= pos[None, :])[None, None]
+    # the decode shape: 4 slots at their own positions over a 256-row cache
+    gq = torch.Generator(device=dev).manual_seed(seed + 12)
+    dq = torch.randn((4, 1, cfg.n_heads, cfg.hd), generator=gq, device=dev
+                     ).to(torch.bfloat16)
+    dk, dv = (torch.randn((4, 256, cfg.n_kv, cfg.hd), generator=gq,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    dpos = torch.tensor([200, 100, 50, 17], device=dev)
+    dmask = (torch.arange(256, device=dev)[None, :] <= dpos[:, None])[
+        :, None, None, :]
+    for tag, args in (("prefill 1 x 16", (q, k, v, causal)),
+                      ("decode 4 x 1 over 256", (dq, dk, dv, dmask))):
+        plain, lib = L._sdpa(*args, cfg), L.sdpa_library(*args, cfg)
+        d = float((plain.float() - lib.float()).abs().max())
+        ms_p = cuda_ms(torch, lambda: L._sdpa(*args, cfg))
+        ms_l = cuda_ms(torch, lambda: L.sdpa_library(*args, cfg))
+        log(f"L1 attention {tag}: SDPA vs plain max |diff| {d:.6f} (tol "
+            f"{L1_SDPA_TOL}, outputs up to "
+            f"{float(plain.float().abs().max()):.3f}); plain {ms_p:.4f} ms, "
+            f"SDPA {ms_l:.4f} ms; SDPA backend kernels: "
+            f"{sdpa_kernels(torch, lambda: L.sdpa_library(*args, cfg))}")
+        if not d <= L1_SDPA_TOL:
+            raise SystemExit(f"L1: SDPA disagrees with plain _sdpa ({tag})")
+    # a decode step of the CLI's shape: 4 slots, a 256-row cache
+    cache4 = T.init_cache(cfg, 4, 256, device=dev)
+    cache4["pos"] = dpos.int()
+    tok4 = torch.randint(0, cfg.vocab, (4,), generator=gq, device=dev)
+    emb = model.embed.embedding
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv_bytes = sum(cache4[k].numel() * cache4[k].element_size()
+                   for k in ("k", "v"))
+    b_ms = bound_ms(weights - emb.numel() * emb.element_size() + kv_bytes,
+                    0)[0]
+    step = {"sdpa": cuda_ms(torch, lambda: T.decode_step(
+        model, cache4, tok4, cfg), iters=10)}
+    route = L.attend
+    L.attend = L._sdpa               # plain _sdpa as the route, for timing
+    try:
+        step["plain"] = cuda_ms(torch, lambda: T.decode_step(
+            model, cache4, tok4, cfg), iters=10)
+    finally:
+        L.attend = route
+    pre = cuda_ms(torch, lambda: T.prefill(model, {"tokens": toks[:, :8]},
+                                           cfg, max_len=256), iters=10)
+    log(f"L1 decode step (4 slots, 256-row cache, CUDA events, "
+        f"{smi_line()}): {step['sdpa']:.3f} ms (SDPA, the card's route; "
+        f"{step['plain']:.3f} ms with plain _sdpa); byte bound {b_ms:.3f} ms (weights but the "
+        f"embedding table, and the K/V cache, at 3.35 TB/s: "
+        f"{(weights - emb.numel() * emb.element_size()) / 1e9:.3f} GB); "
+        f"{4e3 / step['sdpa']:.1f} tokens/s at 4 slots; prefill of 8 "
+        f"tokens {pre:.3f} ms")
+    phase_profile(torch, [
+        ("qwen2-7b decode step, 4 slots x 256", lambda: T.decode_step(
+            model, cache4, tok4, cfg)),
+        ("qwen2-7b prefill, 8 tokens", lambda: T.prefill(
+            model, {"tokens": toks[:, :8]}, cfg, max_len=256))])
+    del model, cache, cache4
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sdpa_kernels(torch, fn) -> str:
+    """The device kernels one call of ``fn`` launched (profiler names)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key[:60] for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    return ", ".join(names) or "none seen by the profiler"
+
+
+def planner_shard_rank(rank, spec):
+    """One rank of L2's agreement (spawned by ``distributed.run_ranks``):
+    this rank's shard of the CLI's planner index, built as the sharded
+    planner builds it, and :func:`planner_agreement` in sync mode on the
+    operators ``spec["queries"]``; writes its record to ``spec["out"]``."""
+    from argparse import Namespace
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import serve
+    dev = torch.device(spec["dev"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    world = dist.group.WORLD
+    torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                              // dist.get_world_size()))
+    seed, cfg = spec["seed"], serve.PLANNER_CFG
+    corpus, _ = serve.draw_corpus(Namespace(seed=seed, corpus=spec["n"],
+                                            emb_dim=spec["dim"]), dev)
+    st = D.build_sharded(corpus, cfg,
+                         torch.Generator(device=dev).manual_seed(seed),
+                         group=world, device=dev)
+    rec = planner_agreement(
+        torch, f"L2 planner rank {rank}", st, corpus, spec["queries"], cfg,
+        lambda i: D.shard_round_keys(seed, 1, cfg.n_tables, "cpu",
+                                     stream=300 + i), group=world)
+    rec.update(rank=rank, rows=int(st.n_valid))
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def phase_sharded_planner(torch, seed, dev="cuda"):
+    """L2: the serve CLI with ``--shards 4`` on the card (gloo ranks, smoke
+    model on rank 0) in both stopping modes: ``main`` raises unless every
+    rank planned the same, and the sharded coalescer raises if its SPMD
+    check fails; logs the plans, collectives an estimate, and wall and
+    launches a rank. Then :func:`planner_shard_rank` on four ranks with the
+    sync run's operators."""
+    import tempfile
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import serve
+    queries = None
+    for mode in ("sync", "local"):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        served, refused = serve.main(L2_ARGS + [
+            "--stopping", mode, "--seed", str(seed), "--device", str(dev)],
+            stats=stats)
+        wall = time.perf_counter() - t0
+        ranks = stats["ranks"]
+        if any(r["plans"] != ranks[0]["plans"] for r in ranks):
+            raise SystemExit(f"L2 {mode}: plans differ between ranks")
+        log(f"L2 {mode} (4 gloo ranks on one card, {smi_line()}; they share "
+            f"it, so no time here is a scaling figure): {served} served, "
+            f"{refused} refused, {wall:.1f} s in main; plans equal on all "
+            f"{len(ranks)} ranks; plans (action, estimate, calls) "
+            f"{ranks[0]['plans']}")
+        for r in ranks:
+            log(f"  rank {r['rank']}: "
+                f"{r['plan_collectives'] / r['n_plans']:.1f} collectives and "
+                f"{1e3 * r['plan_s'] / r['n_plans']:.1f} ms an estimate; "
+                f"index build {r['planner_build_s']:.3f} s; request loop "
+                f"{r['wall_s']:.3f} s; launches "
+                f"{json.dumps({k: v for k, v in r['launches'].items() if v})}")
+        if mode == "sync":
+            queries = ranks[0]["queries"]
+    with tempfile.TemporaryDirectory() as out:
+        spec = dict(dev=str(dev), seed=seed, n=N, dim=DIM, queries=queries,
+                    out=out)
+        D.run_ranks(planner_shard_rank, 4, args=(spec,), backend="gloo",
+                    timeout=S1_TIMEOUT)
+        recs = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                for r in range(4)]
+    log(f"L2 planner at the CLI's shapes, sync mode, 4 gloo ranks on one "
+        f"card: l2dist vs ref.l2dist max |diff| {recs[0]['l2dist_err']}; "
+        f"operators {recs[0]['kept']} tie-free over every shard, exact "
+        f"counts {recs[0]['exact']}")
+    for r in recs:
+        log(f"  rank {r['rank']} ({r['rows']} rows): CPU copy and card agree "
+            f"(max |diff| {r['est_diff']}, estimates {r['ests']}), probed_k "
+            f"and nvisited equal; {r['seconds']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--s1-only", action="store_true",
                     help="phases 1-2 and S1 alone; no result lines")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="phases 1-2, L1 and L2 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -2798,6 +3216,12 @@ def main(argv=None) -> int:
     from repro_torch.data import vectors
     phase_build()
     lap("device and build")
+    if args.serve_only:
+        phase_lm_serving(torch, args.seed)
+        lap("L1 LM serving")
+        phase_sharded_planner(torch, args.seed)
+        lap("L2 sharded planner")
+        return 0
     cfg = ProberConfig(**CFG_KW)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2914,6 +3338,11 @@ def main(argv=None) -> int:
     lap("D1 corpora")
     phase_sharded(torch, args.seed, qs, taus, main_qe, corpus_digest, dev)
     lap("S1 sharded estimator")
+    torch.cuda.empty_cache()
+    phase_lm_serving(torch, args.seed)
+    lap("L1 LM serving")
+    phase_sharded_planner(torch, args.seed)
+    lap("L2 sharded planner")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

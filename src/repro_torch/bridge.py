@@ -22,6 +22,13 @@ the same way, field by field under the reference's names and dtypes
 table (``dists`` int8, ``n`` int32, ``max_dist`` an int), and
 :func:`mlp_to_numpy` / ``mlp_from_numpy`` the learned baseline (``refs``,
 ``w1`` … ``b3`` float32, in the reference's (in, out) layout).
+
+:func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` carry a dense
+LM's weights under the reference param tree's paths, dot-joined:
+``embed.embedding``, ``embed.lm_head`` (untied), ``layers.attn.wq`` …
+``layers.mlp.wo`` and ``layers.ln1.scale`` with the leading layer axis,
+``final_norm.scale`` (float32 numpy both ways; the port stores matrices in
+``cfg.dtype``).
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from repro_torch.cache.epochs import EpochState
 from repro_torch.cache.estimate_cache import EstimateCache
 from repro_torch.core import baselines, lsh, neighbors, pq as pqmod
 from repro_torch.core.estimator import ProberState
+from repro_torch.models import transformer
+from repro_torch.models.base import ModelConfig
 
 _INDEX_FIELDS = ("raw", "codes", "order", "bucket_codes", "bucket_starts",
                  "bucket_sizes", "n_buckets", "n_valid")
@@ -148,3 +157,54 @@ def mlp_from_numpy(d: dict, device) -> baselines.MLPEstimator:
 def mlp_to_numpy(m: baselines.MLPEstimator) -> dict[str, np.ndarray]:
     return {k: getattr(m, k).detach().cpu().numpy()
             for k in baselines.MLP_FIELDS}
+
+
+_LAYERS = "layers."
+
+
+def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
+                         device) -> transformer.Transformer:
+    """A dense :class:`~repro_torch.models.transformer.Transformer` holding
+    the reference's params ``d`` (path -> array; ``layers.*`` with the
+    leading L axis), each converted to the port's storage dtype."""
+    model = transformer.Transformer(cfg, torch.Generator(), "meta")
+    want = model.state_dict()
+    sd = {}
+    for k, v in d.items():
+        v = np.asarray(v)
+        if k.startswith(_LAYERS):
+            if v.shape[0] != cfg.n_layers:
+                raise ValueError(f"{k}: {v.shape[0]} layers, config has "
+                                 f"{cfg.n_layers}")
+            sub = k[len(_LAYERS):]
+            sd.update({f"{_LAYERS}{i}.{sub}": v[i]
+                       for i in range(cfg.n_layers)})
+        else:
+            sd[k] = v
+    if set(sd) != set(want):
+        raise KeyError(f"params do not fit {cfg.name}: missing "
+                       f"{sorted(set(want) - set(sd))}, unexpected "
+                       f"{sorted(set(sd) - set(want))}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(want[k].shape):
+            raise ValueError(f"{k}: shape {v.shape}, expected "
+                             f"{tuple(want[k].shape)}")
+        sd[k] = torch.tensor(v, dtype=want[k].dtype, device=device)
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+def lm_params_to_numpy(model: transformer.Transformer) -> dict[str,
+                                                                np.ndarray]:
+    """The model's weights under the reference's paths, float32, layer
+    weights stacked on a leading L axis."""
+    out: dict[str, list] = {}
+    for k, v in model.state_dict().items():
+        a = v.detach().float().cpu().numpy()
+        if k.startswith(_LAYERS):
+            sub = k[len(_LAYERS):].split(".", 1)[1]
+            out.setdefault(_LAYERS + sub, []).append(a)
+        else:
+            out[k] = a
+    return {k: np.stack(v) if isinstance(v, list) else v
+            for k, v in out.items()}

@@ -152,6 +152,10 @@ class CardinalityCoalescer:
             D.shard_counts(nv, self._group, st.x.device)
 
     def submit(self, q, tau) -> CardRequest:
+        """Queue ``(q, tau)``; ``q`` (d,) is an array or a tensor on any
+        device (held on the host until its flush)."""
+        if isinstance(q, torch.Tensor):
+            q = q.detach().cpu()
         req = CardRequest(rid=self._next_rid, q=np.asarray(q),
                           tau=float(tau))
         self._next_rid += 1

@@ -102,3 +102,15 @@ def assert_no_tau_ties(x, qs, taus, n_valid=None):
 def assert_no_hash_ties(x, a, b, w):
     near = near_integer(x, a, b, w)
     assert not near.any(), f"{near.sum()} hash values within {MARGIN} of an integer"
+
+
+def jax_params_numpy(params, prefix: str = "") -> dict:
+    """A reference param tree (nested dicts) as the port bridge's numpy
+    dict: paths dot-joined (``layers.attn.wq``, ``embed.embedding``)."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(jax_params_numpy(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out

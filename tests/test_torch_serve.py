@@ -519,3 +519,22 @@ def test_cuda_cache_insert_raises_on_what_the_kernel_does_not_take():
     big = C.init_cache((1 << 16) + 1, 2, 10, "cuda")
     with pytest.raises(ValueError, match="65536 entries"):
         ops.cache_insert(big, *lanes, True)
+
+
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+def test_submit_takes_query_tensors(data, dev):
+    """A query may be a tensor on the state's device (the serve CLI passes
+    a row of its corpus): it serves exactly as the same query as numpy."""
+    if dev == "cuda":
+        _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    st_ = E.build(torch.from_numpy(data[:1024]).to(dev), CFG, g,
+                  capacity=2048, track_epochs=True, device=dev)
+    co = CardinalityCoalescer(st_, CFG, g, max_batch=8, cache_size=64)
+    q = data[3] + 0.01
+    first = co.submit(torch.from_numpy(q).to(dev), 4.0)
+    co.flush()
+    again = co.submit(q, 4.0)
+    co.flush()
+    assert again.provenance == "hit" and again.est == first.est
