@@ -113,19 +113,26 @@ N1. The paper's neighbor table (Alg. 6) of both tables of the exact 1M
     ``hamming_to_buckets(...) == k`` for 64 buckets a table, k = 1..6;
     then points anchored on live rows (4,096, more until every table
     gains a bucket) ingested with W kept, and Alg. 9's update ``torch.equal`` to
-    a fresh build of the old codes followed by the new ones, timed against
-    the build. ``neighbor_dists`` launches are counted over the builds and
+    a fresh build of the old codes followed by the new ones and to its
+    plain version, timed against the build, the plain version and its
+    bound. ``neighbor_dists`` launches are counted over the builds and
     updates.
 B1. The baselines on the same state: 64 paper-protocol queries x 12
     targets through the Dynamic Prober (exact), Sampling 1 % (10,000
     rows a pair; ``l2dist_rows`` launches counted over this run alone and
-    the kernel held against its plain version there) and the MLP trained
+    the kernel held against its plain version there, on the ids as drawn
+    and shuffled within each row; the ids' share of non-decreasing
+    neighbours, what a sort of them would cost, and the kernel's time
+    beside the per-draw and distinct-row byte bounds) and the MLP trained
     on 60 % of the queries; q-errors, ms a pair, training seconds.
 D1. The five paper corpora (``CORPORA``) at their own widths (128, 300,
     300, 960, 1770), each at N = 1M: ``load``, the exact build, one
-    ``estimate_batch`` of 64 queries (q-error, wall ms, peak memory), and
-    which ``l2dist`` kernel the workload took (the general one at d = 960
-    and 1770, as ``ops.l2dist_plan`` decides); Sampling 1 % at d = 1770,
+    ``estimate_batch`` of 64 queries (q-error, wall ms, peak memory); the
+    workload's ``l2dist`` must take the tiled kernel at every width (k in
+    2 panels at d = 960, 4 at 1770 with 8-byte copies) and never the
+    general one, and is held with ``torch.equal`` against the general
+    kernel (the witness), its time beside the operations bound, the
+    FP32-issue ceiling and the witness's time; Sampling 1 % at d = 1770,
     and the small-input CPU-vs-GPU agreement at d = 1770 (the kernels'
     paths for rows that are not 16-byte pieces).
 
@@ -344,6 +351,14 @@ def max_sm_clock_hz() -> float:
     return float(smi.stdout.split()[0]) * 1e6
 
 
+def fp32_ceiling_ms(torch, flops: float) -> float:
+    """The FP32-issue ceiling of the difference form: ``flops`` / 2 FADD
+    and as many FFMA lane instructions, one warp instruction per scheduler
+    a clock on every SM at the card's maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return flops / (sms * FP32_LANES_PER_SM * max_sm_clock_hz()) * 1e3
+
+
 def clocks_under_load(torch, fn, seconds: float = 2.0):
     """(SM MHz, board W) samples of ``nvidia-smi`` every 100 ms while ``fn``
     runs back to back for ``seconds`` (the first second's samples dropped:
@@ -516,9 +531,7 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
             library_ms=cuda_ms(torch, lambda: torch.cdist(xl, qs) ** 2))
         del got, want
         general_ms = cuda_ms(torch, lambda: ops.l2dist_general(xl, qs))
-        # one FADD and one FFMA per (row, query, k), one warp instruction
-        # per scheduler a clock
-        ceiling = flops / (sms * FP32_LANES_PER_SM * sm_hz) * 1e3
+        ceiling = fp32_ceiling_ms(torch, flops)
         log(f"l2dist[{nl} x {NQ} x {d}]: tiled kernel {r['ms']:.4f} ms "
             f"(bit-equal to the general kernel, {general_ms:.4f} ms); plain "
             f"{r['plain_ms']:.4f} ms, torch.cdist ** 2 "
@@ -541,7 +554,8 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
             f"{max(w for _, w in rows):.2f} W; FP32-issue ceiling at the "
             f"median clock {at_mhz * 1e3:.4f} ms")
     from repro_torch.kernels import build
-    mix = sass_mix(build.load().path, "l2dist_tiled_kernel")
+    # the instantiation d = 128 takes: 16-byte copies, one panel
+    mix = sass_mix(build.load().path, "l2dist_tiled_kernelILi16ELb0E")
     log("l2dist_tiled_kernel k loop (SASS): " + (
         "not measured (no cuobjdump)" if mix is None else
         f"{mix[0]} FADD + {mix[1]} FFMA of {mix[2]} instructions = "
@@ -2219,10 +2233,27 @@ def phase_neighbors(torch, state, cfg, seed):
                plain_ms=cuda_ms(torch, plain_both, iters=3),
                bound=(max(tb, ti), "bytes" if tb >= ti else "operations"),
                library_ms=cuda_ms(torch, cdist_both, iters=3))
+    new_rows = [b - a for a, b in zip(nbs, nbs2)]
+    outs = [u.dists.clone() for u in updated]
+
+    def plain_update_both():
+        return [ref.neighbor_dists(codes_all[t].to(torch.int32), nbs2[t], m,
+                                   nbs[t], nbs2[t], outs[t])
+                for t in range(nl)]
+
+    if not all(torch.equal(a, b.dists)
+               for a, b in zip(plain_update_both(), updated)):
+        raise AssertionError("Alg. 9's update differs from its plain version")
     upd_ms = cuda_ms(torch, update_both)
+    upd_plain_ms = cuda_ms(torch, plain_update_both, iters=3)
+    # bytes: both strips of each table written once, its live codes read
+    # once; operations: the compares of the new rows against the live ones
+    upd_tb = sum(r * (2 * cap2 - r) + 4 * n2 * k
+                 for r, n2 in zip(new_rows, nbs2)) / HBM_BYTES_S * 1e3
+    upd_ti = sum(r * n2 * k for r, n2 in zip(new_rows, nbs2)) \
+        / INT32_OP_S * 1e3
     dev_us = kernel_device_us(torch, build_both, "neighbor_dists_kernel")
     upd_us = kernel_device_us(torch, update_both, "neighbor_dists_kernel")
-    new_rows = [b - a for a, b in zip(nbs, nbs2)]
     log(f"neighbor_dists[{nl} x ({cap}, {cap}), K = {k}]: wrapper "
         f"{res['ms']:.4f} ms for both tables (CUDA events), device "
         f"{dev_us:.2f} us a table (profiler); plain {res['plain_ms']:.4f} ms, "
@@ -2232,7 +2263,10 @@ def phase_neighbors(torch, state, cfg, seed):
     log(f"N1 Alg. 9 update ({new_rows} new codes, strips of "
         f"{[r * (2 * cap2 - r) for r in new_rows]} entries): {upd_ms:.4f} ms "
         f"against the build's {res['ms']:.4f} ms ({upd_ms / res['ms']:.4f}); "
-        f"device {upd_us:.2f} us a launch against the build's {dev_us:.2f}")
+        f"device {upd_us:.2f} us a launch against the build's {dev_us:.2f}; "
+        f"plain {upd_plain_ms:.4f} ms (torch.equal to the kernel's); bound "
+        f"{max(upd_tb, upd_ti):.6f} ms ({'bytes' if upd_tb >= upd_ti else 'operations'}: "
+        f"bytes {upd_tb:.6f}, compares {upd_ti:.6f})")
     return res, launches
 
 
@@ -2271,11 +2305,27 @@ def phase_baselines(torch, state, x, cfg, seed):
     if samp_counts["l2dist_rows"] == 0:
         raise AssertionError("B1: sampling launched no l2dist_rows")
     ids = baselines.draw_sample_ids(g, x.shape[0], n_pairs, n_s)
+    # the kernel reads a row that several pairs draw from L2 when each
+    # pair's ids ascend; how far the top-k draws do, and what a sort would
+    # cost
+    ascending = float((ids[:, 1:] >= ids[:, :-1]).float().mean())
+    sort_ms = cuda_ms(torch, lambda: ids.sort(dim=1), iters=5)
     got = ops.l2dist_rows(x, ids, fq)
     want = ref.l2dist_rows(x, ids, fq)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     check_decisions(torch, f"B1 l2dist_rows{tuple(ids.shape)}", got, want,
                     (ft * ft)[:, None])
+    # the same draws shuffled within each row: the same distances, moved
+    g_perm = torch.Generator(device=dev).manual_seed(seed + 14)
+    perm = torch.argsort(torch.rand(ids.shape, generator=g_perm, device=dev),
+                         dim=1)
+    shuffled = torch.gather(ids, 1, perm).contiguous()
+    if not torch.equal(ops.l2dist_rows(x, shuffled, fq),
+                       torch.gather(got, 1, perm)):
+        raise AssertionError("B1 l2dist_rows: shuffled ids give other "
+                             "distances")
+    shuffled_ms = cuda_ms(torch, lambda: ops.l2dist_rows(x, shuffled, fq))
+    del perm, shuffled
     r, d = ids.shape[0], x.shape[1]
     # 7.68M draws over 1M rows touch nearly every row, most several times:
     # the function must read each distinct drawn row once
@@ -2318,11 +2368,15 @@ def phase_baselines(torch, state, x, cfg, seed):
         f"{rows_ms:.3f} ms a batch), MLP {t_m * 1e3 / et.shape[0]:.4f}; "
         f"MLP training {t_fit:.3f} s ({ntr} queries x {nt}, 400 epochs)")
     log(f"B1 sampling launches: {json.dumps(samp_counts)}")
-    log(f"l2dist_rows[B1, ({r}, {n_s}, {d})]: kernel {rows['ms']:.4f} ms, "
-        f"plain {rows['plain_ms']:.4f} ms, bound {rows['bound'][0]:.4f} ms "
-        f"({rows['bound'][1]}; {n_rows} distinct rows drawn, "
-        f"{r * n_s / n_rows:.2f} draws a row), max_abs_err "
-        f"{rows['max_abs_err']}")
+    per_draw = bound_ms(4 * (r * n_s + r * n_s * d + r * d + r * n_s), 0)[0]
+    log(f"l2dist_rows[B1, ({r}, {n_s}, {d})]: kernel {rows['ms']:.4f} ms on "
+        f"the ids as drawn ({ascending:.6f} of neighbours non-decreasing; "
+        f"a sort of each row would take {sort_ms:.4f} ms), "
+        f"{shuffled_ms:.4f} ms on them shuffled within each row; plain "
+        f"{rows['plain_ms']:.4f} ms; bounds: bytes of the distinct rows "
+        f"{rows['bound'][0]:.4f} ms ({rows['bound'][1]}; {n_rows} distinct "
+        f"rows drawn, {r * n_s / n_rows:.2f} draws a row), a row a draw "
+        f"{per_draw:.4f} ms; max_abs_err {rows['max_abs_err']}")
     return samp_counts, rows
 
 
@@ -2363,8 +2417,11 @@ def check_ground_truth(torch, tag, got, want, taus, cards):
 def phase_corpora(torch, cfg, seed, dev):
     """D1: the five paper corpora at their own widths, each at N = 1M
     (``load`` at scale 1M / CORPORA's N): the workload's ``l2dist`` (the
-    general kernel at d = 960 and 1770) against its plain version, and the
-    ground-truth cardinalities against a plain recount; build the exact
+    tiled kernel at every width, never the general one) against its plain
+    version and, with ``torch.equal``, against the general kernel, the
+    witness, and the ground-truth cardinalities against a plain recount;
+    its time beside the operations bound, the FP32-issue ceiling and the
+    witness's time; build the exact
     state, one ``estimate_batch`` of 64 paper-protocol queries; q-error,
     wall ms, peak memory. At d = 1770 also Sampling 1 % (``l2dist_rows``
     off its 16-byte path, against its plain version)."""
@@ -2384,10 +2441,14 @@ def phase_corpora(torch, cfg, seed, dev):
                           ops.LAUNCHES["l2dist_general"])
         plan = ops.l2dist_plan(ds.x.shape[0], NQ, d, ds.x.data_ptr(),
                                ds.queries.data_ptr())
-        if (tiled, general) != ((1, 0) if plan else (0, 1)):
+        if (tiled, general) != (1, 0) or plan is None:
             raise AssertionError(f"D1 {name}: l2dist launches tiled {tiled}, "
-                                 f"general {general}, against the plan")
+                                 f"general {general}: the workload must take "
+                                 "the tiled kernel alone")
         got = ops.l2dist(ds.x, ds.queries)
+        if not torch.equal(got, ops.l2dist_general(ds.x, ds.queries)):
+            raise AssertionError(f"D1 {name}: the tiled l2dist differs from "
+                                 "the general kernel")
         want = plain_l2dist(torch, ds.x, ds.queries)
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -2397,10 +2458,13 @@ def phase_corpora(torch, cfg, seed, dev):
         plain_ms = cuda_ms(torch, lambda: plain_l2dist(
             torch, ds.x, ds.queries), iters=1)
         l2_ms = cuda_ms(torch, lambda: ops.l2dist(ds.x, ds.queries), iters=5)
+        witness_ms = cuda_ms(torch, lambda: ops.l2dist_general(
+            ds.x, ds.queries), iters=5)
         lib_ms = cuda_ms(torch, lambda: torch.cdist(ds.x, ds.queries) ** 2,
                          iters=3)
         nb_, fl = 4 * (ds.x.numel() + NQ * d + ds.x.shape[0] * NQ), \
             2 * ds.x.shape[0] * NQ * d
+        ceiling = fp32_ceiling_ms(torch, fl)
         taus = ds.taus[torch.arange(NQ, device=dev),
                        torch.arange(NQ, device=dev) % ds.taus.shape[1]]
         truth = ds.cards[torch.arange(NQ, device=dev),
@@ -2420,13 +2484,15 @@ def phase_corpora(torch, cfg, seed, dev):
             f"{N / n0:g}): load {t_load:.3f} s, build {t_build:.3f} s, "
             f"estimate_batch of {NQ} {t_est * 1e3:.3f} ms (second call), "
             f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f}"
-            f" GiB; the workload's l2dist took the "
-            f"{'tiled' if tiled else 'general'} kernel: {l2_ms:.4f} ms a "
-            f"call ({ds.x.shape[0]} x {NQ} x {d}; bounds: bytes "
-            f"{nb_ / HBM_BYTES_S * 1e3:.4f} ms, operations "
-            f"{fl / FP32_FLOP_S * 1e3:.4f} ms), plain {plain_ms:.2f} ms (one "
-            f"call, in row chunks), torch.cdist(x, q) ** 2 {lib_ms:.4f} ms, "
-            f"max |diff| {err}")
+            f" GiB; the workload's l2dist took the tiled kernel ({plan.panels}"
+            f" panels of {plan.chunks} chunks, {plan.width}-byte copies): "
+            f"{l2_ms:.4f} ms a call ({ds.x.shape[0]} x {NQ} x {d}; bounds: "
+            f"bytes {nb_ / HBM_BYTES_S * 1e3:.4f} ms, operations "
+            f"{fl / FP32_FLOP_S * 1e3:.4f} ms; FP32-issue ceiling "
+            f"{ceiling:.4f} ms, {ceiling / l2_ms:.4f} of it), the general "
+            f"kernel (the witness, bit-equal) {witness_ms:.4f} ms, plain "
+            f"{plain_ms:.2f} ms (one call, in row chunks), torch.cdist(x, q) "
+            f"** 2 {lib_ms:.4f} ms, max |diff| {err}")
         summarize(torch, f"D1 {name} estimate", est, truth)
         if d == D1_SAMPLING_DIM:
             n_s = ds.x.shape[0] // 100

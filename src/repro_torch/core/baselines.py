@@ -34,7 +34,12 @@ def draw_sample_ids(generator: torch.Generator, n: int, nq: int,
     """(nq, n_samples) int32: for each row, ``n_samples`` distinct ids drawn
     uniformly from [0, n) (the law of ``jax.random.choice(replace=False)``).
     Rows are drawn in chunks as the top-k of a (chunk, n) uniform draw, so
-    no per-row permutation is built."""
+    no per-row permutation is built. On the card the top-k returns each
+    row's ids nearly in ascending order, the order in which
+    ``ops.l2dist_rows`` reads a row that several rows of draws share from
+    L2 (``chip_smoke.py`` B1 measures both); so no sort follows, which
+    would cost more than it saves. An estimate does not depend on the
+    order of a row's draws."""
     if not 0 < n_samples <= n:
         raise ValueError(f"cannot draw {n_samples} distinct ids from {n}")
     g = generator

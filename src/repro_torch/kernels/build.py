@@ -30,7 +30,7 @@ SIGNATURES = {
     "lsh_hash_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "hamming_to_buckets_i32": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
     "query_lanes_i32": [_P] * 8 + [_I, _I, _I64, _I, _I, _I, _I, _I64, _P],
-    "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _I64, _I, _I, _P],
+    "l2dist_f32": [_P, _P, _P, _I64, _I, _I, _I64] + [_I] * 5 + [_P],
     "l2dist_general_f32": [_P, _P, _P, _I64, _I, _I, _P],
     "l2dist_rows_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "adc_rows_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-# launches per wrapper; "l2dist" counts both of its kernels, and
-# "l2dist_general" the general one alone
+# launches per wrapper; "l2dist" counts both of its kernels (a tiled call
+# is one launch, whatever its panels), and "l2dist_general" the general
+# one alone, which only its witness wrapper launches
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
                             "query_lanes": 0, "l2dist": 0,
                             "l2dist_general": 0, "l2dist_rows": 0,
@@ -200,37 +201,50 @@ def hamming(bucket_codes: torch.Tensor, qcode: torch.Tensor) -> torch.Tensor:
 
 # l2dist's tiled kernel (``l2dist_f32`` in csrc/l2dist.cu): tiles of 128
 # rows and 64 queries, x staged in chunks of 64 floats of k (rows padded to
-# 68 floats) through a ring of 2 stages
+# 68 floats) through a ring of 2 stages; the query tile of a panel of k,
+# at most 9 chunks, stays resident
 _L2_ROWS, _L2_QT, _L2_KC, _L2_STAGES = 128, 64, 64, 2
+_L2_RING = _L2_STAGES * _L2_ROWS * (_L2_KC + 4)
+_L2_MAX_CHUNKS = (_SMEM_LIMIT // 4 - _L2_RING) // (_L2_KC * _L2_QT)
 
 
 class L2Plan(NamedTuple):
-    """How ``l2dist_f32`` covers an (N, Q) output."""
+    """How ``l2dist_f32`` covers an (N, Q) output; the fields are its
+    arguments, in order."""
     row_tiles: int      # 128-row tiles of x
     q_tiles: int        # 64-query tiles of q, each resident in one block
+    panels: int         # panels of k, each a query tile of its own
+    chunks: int         # chunks of 64 floats of k a panel (the last fewer)
+    width: int          # bytes a copy of x and q: 16, 8 or 4
     smem: int           # dynamic shared memory of one block, bytes
 
 
-def l2dist_smem(d: int) -> int:
+def l2dist_smem(chunks: int) -> int:
     """Shared memory of one tiled ``l2dist`` block (``tiled_smem`` in
-    ``csrc/l2dist.cu``): the query tile, transposed, with d padded to a
-    multiple of 64, and the ring of staged row chunks."""
-    kch = -(-d // _L2_KC)
-    return 4 * (kch * _L2_KC * _L2_QT + _L2_STAGES * _L2_ROWS * (_L2_KC + 4))
+    ``csrc/l2dist.cu``): a panel's query tile of ``chunks`` chunks of 64
+    floats of k, transposed, and the ring of staged row chunks."""
+    return 4 * (chunks * _L2_KC * _L2_QT + _L2_RING)
 
 
 def l2dist_plan(n: int, nq: int, d: int, x_ptr: int,
                 q_ptr: int) -> L2Plan | None:
     """The tiled kernel's plan for x (N, d) and q (Q, d) at these
-    addresses, or None where the shape goes to the general kernel. The
-    tiled kernel reads rows as 16-byte pieces, so it takes d % 4 == 0 and
-    16-byte aligned x and q, and a query tile that fits a block's shared
-    memory; it masks ragged N and Q itself."""
-    smem = l2dist_smem(d)
-    if (d % 4 or x_ptr % 16 or q_ptr % 16 or smem > _SMEM_LIMIT
-            or -(-nq // _L2_QT) > 65535):
+    addresses, or None where d is 0 or Q needs more than 65,535 query
+    tiles. d is cut into the fewest panels of at most 9 chunks, of equal
+    chunks; x and q are copied in the widest pieces (16, 8 or 4 bytes)
+    that the row width and both addresses allow (the kernel refuses an
+    address that is not 4-byte aligned). Ragged N and Q are masked by the
+    kernel."""
+    q_tiles = -(-nq // _L2_QT)
+    if q_tiles > 65535 or d < 1:
         return None
-    return L2Plan(-(-n // _L2_ROWS), -(-nq // _L2_QT), smem)
+    kch = -(-d // _L2_KC)
+    panels = -(-kch // _L2_MAX_CHUNKS)
+    chunks = -(-kch // panels)
+    width = next((w for w in (16, 8) if (4 * d) % w == 0
+                  and x_ptr % w == 0 and q_ptr % w == 0), 4)
+    return L2Plan(-(-n // _L2_ROWS), q_tiles, -(-kch // chunks), chunks,
+                  width, l2dist_smem(chunks))
 
 
 def _l2dist_args(x: torch.Tensor, q: torch.Tensor) -> tuple[int, int, int]:
@@ -241,16 +255,10 @@ def _l2dist_args(x: torch.Tensor, q: torch.Tensor) -> tuple[int, int, int]:
     return x.shape[0], q.shape[0], x.shape[1]
 
 
-def _l2dist_general(x, q, out, n, nq, d) -> None:
-    _launch("l2dist", "l2dist_general_f32", x.data_ptr(), q.data_ptr(),
-            out.data_ptr(), n, nq, d)
-    LAUNCHES["l2dist_general"] += 1
-
-
 def l2dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """x (N, d), q (Q, d) float32 → (N, Q) squared distances Σ(x−q)²,
-    through the tiled kernel where :func:`l2dist_plan` takes the shape and
-    the general one elsewhere; the two are bit-equal."""
+    through the tiled kernel at every shape :func:`l2dist_plan` covers; a
+    shape it does not cover raises."""
     if _on_cpu(x, q):
         return ref.l2dist(x, q)
     n, nq, d = _l2dist_args(x, q)
@@ -258,32 +266,37 @@ def l2dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     if n and nq:
         plan = l2dist_plan(n, nq, d, x.data_ptr(), q.data_ptr())
         if plan is None:
-            _l2dist_general(x, q, out, n, nq, d)
-        else:
-            _launch("l2dist", "l2dist_f32", x.data_ptr(), q.data_ptr(),
-                    out.data_ptr(), n, nq, d, *plan)
+            raise ValueError(f"l2dist: no tiled plan for x{tuple(x.shape)} "
+                             f"q{tuple(q.shape)}")
+        _launch("l2dist", "l2dist_f32", x.data_ptr(), q.data_ptr(),
+                out.data_ptr(), n, nq, d, *plan)
     return out
 
 
 def l2dist_general(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """:func:`l2dist` through the general kernel at any shape: what
-    ``l2dist`` runs where the plan declines the tiled kernel, and what the
-    card's checks hold the tiled kernel against."""
+    """:func:`l2dist` through the general kernel (the first port) at any
+    shape: no path runs it; it is the bit-equality witness the card's
+    checks hold the tiled kernel against. Counted in ``"l2dist"`` and in
+    ``"l2dist_general"``."""
     if _on_cpu(x, q):
         return ref.l2dist(x, q)
     n, nq, d = _l2dist_args(x, q)
     out = torch.empty((n, nq), dtype=torch.float32, device=x.device)
     if n and nq:
-        _l2dist_general(x, q, out, n, nq, d)
+        _launch("l2dist", "l2dist_general_f32", x.data_ptr(), q.data_ptr(),
+                out.data_ptr(), n, nq, d)
+        LAUNCHES["l2dist_general"] += 1
     return out
 
 
 def l2dist_rows(x: torch.Tensor, ids: torch.Tensor,
                 qs: torch.Tensor) -> torch.Tensor:
     """x (C, d) float32, ids (R, c) int32, qs (R, d) float32 → (R, c)
-    squared distances of the gathered rows ``x[ids[r]]`` to ``qs[r]``; the
-    gather is fused, so the rows never pass through device memory. Every id
-    must lie in [0, C)."""
+    squared distances of the gathered rows ``x[ids[r]]`` to ``qs[r]``, in
+    the order of ``ids``; the gather is fused, so the rows never pass
+    through device memory. Every id must lie in [0, C). The kernel runs
+    chunks of draws across all R rows at once, so ids in ascending order
+    within each row read the rows several pairs draw from L2."""
     if _on_cpu(x, ids, qs):
         return ref.l2dist_rows(x, ids, qs)
     _check(x, "x", torch.float32, 2)
@@ -294,6 +307,9 @@ def l2dist_rows(x: torch.Tensor, ids: torch.Tensor,
     if qs.shape != (nr, d):
         raise ValueError(f"shapes x{tuple(x.shape)} ids{tuple(ids.shape)} "
                          f"qs{tuple(qs.shape)}")
+    if 4 * d > _SMEM_LIMIT:
+        raise ValueError(f"l2dist_rows: a query of {d} floats does not fit "
+                         "shared memory")
     out = torch.empty((nr, c), dtype=torch.float32, device=x.device)
     vec = int(d % 4 == 0 and x.data_ptr() % 16 == 0
               and qs.data_ptr() % 16 == 0)

@@ -120,6 +120,47 @@ def test_sampling_batch_is_rowwise_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("n_valid", [None, 450])
+def test_sampling_ignores_the_order_of_draws_within_a_row(seed, n_valid):
+    """The estimate counts hits a row, so the reference's draws given in
+    any order within each row (as drawn, ascending, shuffled) give the
+    reference's estimates bit for bit: the ids form, and the ``u, n_valid``
+    form with its uniforms permuted."""
+    J = _jax()
+    x, qs, taus = _data(seed, nq=8)
+    if n_valid is not None:
+        x[n_valid:] = 1e6                   # padding no draw may reach
+    xj = J.jnp.asarray(x)
+    s = 60
+    keys = [J.jax.random.PRNGKey(53 * seed + i) for i in range(len(qs))]
+    nv = None if n_valid is None else J.jnp.int32(n_valid)
+    want = np.array([J.b.sampling_estimate(xj, J.jnp.asarray(qs[i]), taus[i],
+                                           k, s, n_valid=nv)
+                     for i, k in enumerate(keys)], np.float32)
+    if n_valid is None:
+        draws = np.stack([np.asarray(J.jax.random.choice(
+            k, x.shape[0], (s,), replace=False)) for k in keys])
+        rows = draws
+    else:
+        draws = np.stack([np.asarray(J.jax.random.uniform(k, (s,)))
+                          for k in keys])
+        rows = np.minimum((draws * np.float32(n_valid)).astype(np.int32),
+                          n_valid - 1)
+    for i in range(len(qs)):
+        assert_no_tau_ties(x[rows[i]], qs[i:i + 1], taus[i:i + 1])
+    rng = np.random.default_rng(seed)
+    for order in (draws, np.sort(draws, axis=1),
+                  rng.permuted(draws, axis=1)):
+        if n_valid is None:
+            got = baselines.sampling_from_draws(_t(x), _t(qs), _t(taus),
+                                                ids=_t(order))
+        else:
+            got = baselines.sampling_from_draws(_t(x), _t(qs), _t(taus),
+                                                u=_t(order), n_valid=n_valid)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("n,nq,s", [(1000, 3, 10), (1000, 130, 1000),
                                     (50, 5, 50)])
 def test_draw_sample_ids_law(n, nq, s):

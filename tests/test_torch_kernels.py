@@ -97,26 +97,40 @@ def test_l2dist_rows_matches_difference_form():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("n,nq,d,x_off,q_off,tiled", [
-    (1000, 64, 128, 0, 0, True),
-    (70_001, 130, 96, 0, 0, True),      # ragged N, two and a bit query tiles
-    (5, 1, 576, 0, 0, True),            # the widest d whose query tile fits
-    (5, 1, 580, 0, 0, False),           # ... and the next multiple of 4
-    (10, 64, 1024, 0, 0, False),        # a d far too wide for the tile
-    (1000, 3, 30, 0, 0, False),         # d % 4 != 0
-    (1000, 64, 128, 1, 0, False),       # x 4 bytes off a 16-byte boundary
-    (1000, 64, 128, 0, 1, False),       # q likewise
+@pytest.mark.parametrize("n,nq,d,x_off,q_off,panels,chunks,width", [
+    (1000, 64, 128, 0, 0, 1, 2, 16),
+    (70_001, 130, 96, 0, 0, 1, 2, 16),  # ragged N, two and a bit query tiles
+    (5, 1, 576, 0, 0, 1, 9, 16),        # the widest d of one panel
+    (5, 1, 580, 0, 0, 2, 5, 16),        # ... and the next multiple of 4
+    (10, 64, 1024, 0, 0, 2, 8, 16),     # a d far too wide for one panel
+    (1000, 3, 30, 0, 0, 1, 1, 8),       # d % 4 != 0: rows of 120 bytes
+    (1000, 64, 128, 1, 0, 1, 2, 4),     # x 4 bytes off a 16-byte boundary
+    (1000, 64, 128, 0, 1, 1, 2, 4),     # q likewise
+    (1000, 64, 960, 0, 0, 2, 8, 16),    # GIST's width
+    (1000, 64, 960, 2, 0, 2, 8, 8),     # ... x 8 bytes off
+    (1000, 64, 960, 0, 1, 2, 8, 4),     # ... q 4 bytes off
+    (1000, 64, 1770, 0, 0, 4, 7, 8),    # YouTube's: rows of 7,080 bytes
+    (1000, 64, 1770, 0, 2, 4, 7, 8),    # ... q 8 bytes off
+    (1000, 64, 1770, 1, 0, 4, 7, 4),    # ... x 4 bytes off
+    (777, 130, 17, 0, 0, 1, 1, 4),      # odd d: rows of 68 bytes
 ])
 def test_l2dist_plan_routes_by_shape_and_alignment(n, nq, d, x_off, q_off,
-                                                   tiled):
+                                                   panels, chunks, width):
+    """Every shape takes the tiled kernel: d in the fewest panels of at
+    most 9 chunks of 64 floats, of equal chunks, and copies of the widest
+    piece that the row width and both addresses allow."""
     x = torch.empty(n * d + x_off)[x_off:].view(n, d)
     q = torch.empty(nq * d + q_off)[q_off:].view(nq, d)
     plan = ops.l2dist_plan(n, nq, d, x.data_ptr(), q.data_ptr())
-    assert (plan is not None) == tiled
-    if tiled:
-        assert plan == ops.L2Plan(-(-n // 128), -(-nq // 64),
-                                  ops.l2dist_smem(d))
-        assert plan.smem <= 232448
+    assert plan == ops.L2Plan(-(-n // 128), -(-nq // 64), panels, chunks,
+                              width, ops.l2dist_smem(chunks))
+    assert (panels - 1) * chunks < -(-d // 64) <= panels * chunks
+    assert plan.smem <= 232448
+
+
+def test_l2dist_plan_refuses_more_query_tiles_than_the_grid_holds():
+    assert ops.l2dist_plan(10, 64 * 65535, 8, 0, 0) is not None
+    assert ops.l2dist_plan(10, 64 * 65535 + 1, 8, 0, 0) is None
 
 
 def test_cpu_tensors_take_plain_versions_and_count_nothing():
@@ -191,38 +205,52 @@ def test_cuda_l2dist_matches_plain(n, q, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,q,d,x_off", [(70_001, 64, 128, 0),
-                                         (4_096, 130, 128, 0),
-                                         (10_000, 1, 128, 0),
-                                         (20_000, 64, 96, 0),
-                                         (5_000, 64, 128, 1)])
-def test_cuda_l2dist_tiled_and_general_agree(n, q, d, x_off):
-    """Shapes at the tiled kernel's edges (ragged N, ragged Q, Q = 1,
-    d = 96) take it and are bit-equal to the general kernel; a misaligned
-    x takes the general one."""
+@pytest.mark.parametrize("n,q,d,x_off,q_off", [
+    (70_001, 64, 128, 0, 0), (4_096, 130, 128, 0, 0), (10_000, 1, 128, 0, 0),
+    (20_000, 64, 96, 0, 0), (5_000, 64, 128, 1, 0),
+    (5_000, 64, 580, 1, 0), (5_000, 64, 960, 0, 0), (5_000, 64, 960, 2, 1),
+    (3_000, 64, 1024, 0, 1), (3_000, 64, 1770, 0, 0), (3_000, 64, 1770, 1, 2),
+    (3_000, 3, 30, 1, 1), (777, 130, 17, 0, 1)])
+def test_cuda_l2dist_tiled_and_general_agree(n, q, d, x_off, q_off):
+    """Every shape takes the tiled kernel (ragged N, ragged Q, Q = 1,
+    several panels of k, 8- and 4-byte copies for odd widths and
+    misaligned x or q) and is bit-equal to the general kernel."""
     g = _card()
     x = torch.randn(n * d + x_off, device="cuda",
                     generator=g)[x_off:].view(n, d)
-    qq = torch.randn(q, d, device="cuda", generator=g)
-    tiled = ops.l2dist_plan(n, q, d, x.data_ptr(), qq.data_ptr()) is not None
-    assert tiled == (x_off == 0)
+    qq = torch.randn(q * d + q_off, device="cuda",
+                     generator=g)[q_off:].view(q, d)
+    assert ops.l2dist_plan(n, q, d, x.data_ptr(), qq.data_ptr()) is not None
     ops.reset_launches()
     got = ops.l2dist(x, qq)
     assert ops.LAUNCHES["l2dist"] == 1
-    assert ops.LAUNCHES["l2dist_general"] == int(not tiled)
+    assert ops.LAUNCHES["l2dist_general"] == 0
     torch.testing.assert_close(got, ref.l2dist(x, qq), rtol=1e-5, atol=1e-5)
     assert torch.equal(got, ops.l2dist_general(x, qq))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,c,d", [(128, 128, 128), (128, 2048, 128),
-                                   (5, 9, 30)])
-def test_cuda_l2dist_rows_matches_plain(r, c, d):
+@pytest.mark.parametrize("r,c,d,n,ordered", [
+    (128, 128, 128, 50_000, False), (128, 2048, 128, 50_000, False),
+    (5, 9, 30, 50_000, False), (128, 2048, 128, 50_000, True),
+    (64, 700, 1770, 50_000, False), (64, 700, 1770, 50_000, True),
+    (33, 301, 30, 50_000, True), (768, 10_000, 128, 1_000_000, True)])
+def test_cuda_l2dist_rows_matches_plain(r, c, d, n, ordered):
+    """Ids as drawn and in ascending order within each row (the Sampling
+    path's order), at the slab shapes, at odd and wide d, and at the
+    Sampling baseline's 768 pairs x 10,000 draws from 1M rows."""
     g = _card()
-    x = torch.randn(50_000, d, device="cuda", generator=g)
-    ids = torch.randint(0, 50_000, (r, c), device="cuda", generator=g,
+    x = torch.randn(n, d, device="cuda", generator=g)
+    ids = torch.randint(0, n, (r, c), device="cuda", generator=g,
                         dtype=torch.int32)
+    if ordered:
+        ids = ids.sort(dim=1).values.contiguous()
     qs = torch.randn(r, d, device="cuda", generator=g)
-    torch.testing.assert_close(ops.l2dist_rows(x, ids, qs),
-                               ref.l2dist_rows(x, ids, qs),
-                               rtol=1e-5, atol=1e-5)
+    got = ops.l2dist_rows(x, ids, qs)
+    want = ref.l2dist_rows(x, ids, qs)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    perm = torch.argsort(torch.rand(ids.shape, device="cuda", generator=g),
+                         dim=1)
+    shuffled = torch.gather(ids, 1, perm).contiguous()
+    assert torch.equal(ops.l2dist_rows(x, shuffled, qs),
+                       torch.gather(got, 1, perm))

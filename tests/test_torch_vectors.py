@@ -96,10 +96,10 @@ def test_load_rejects_a_generator_elsewhere():
 @pytest.mark.parametrize("name", list(vectors.CORPORA))
 def test_cuda_load_kernels_match_plain_at_each_width(name):
     """The paper widths' kernel routes on the card: the workload's
-    ``l2dist`` (tiled at d = 128 and 300; general at 960, whose query tile
-    outgrows shared memory, and at 1770, which is not a multiple of 4) and
-    ``l2dist_rows`` (its scalar row path at 1770) against their plain
-    versions; the cardinalities equal a recount from the kernel's
+    ``l2dist`` (tiled at every width: in two panels of k at 960, four at
+    1770, whose 7,080-byte rows take 8-byte copies; never the general
+    kernel) and ``l2dist_rows`` (its scalar row path at 1770) against their
+    plain versions; the cardinalities equal a recount from the kernel's
     distances."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -108,7 +108,13 @@ def test_cuda_load_kernels_match_plain_at_each_width(name):
     ops.reset_launches()
     ds = vectors.load(name, g, n_queries=33, scale=6_007 / n)
     assert ops.LAUNCHES["l2dist"] == 1
-    assert ops.LAUNCHES["l2dist_general"] == int(d in (960, 1770))
+    assert ops.LAUNCHES["l2dist_general"] == 0
+    plan = ops.l2dist_plan(ds.x.shape[0], 33, d, ds.x.data_ptr(),
+                           ds.queries.data_ptr())
+    assert (plan.panels, plan.width) == ({960: 2, 1770: 4}.get(d, 1),
+                                         8 if d == 1770 else 16)
+    assert torch.equal(ops.l2dist(ds.x, ds.queries),
+                       ops.l2dist_general(ds.x, ds.queries))
     got = ops.l2dist(ds.x, ds.queries)
     torch.testing.assert_close(got, ref.l2dist(ds.x, ds.queries),
                                rtol=1e-5, atol=1e-5)
