@@ -97,8 +97,10 @@ C1. The serving deployment at the main path's width: the exact state at
     flush's shapes and profiles of an all-hit and an all-miss flush.
 C2. ``cache_insert`` against its plain version, ``torch.equal`` on every
     field (S = 1024 and 65,536; 64 and 256 lanes; duplicate keys; a full
-    cache with every ``ref`` set), with wrapper, device and plain-loop
-    times and the bound.
+    cache with every ``ref`` set), with wrapper, device (its three
+    kernels summed) and plain-loop times and the bound; then the chain's
+    per-lane slope: device time at 1 active lane against 64 at S = 1024,
+    in ns and in clocks at the SM clock measured under that load.
 C3. Small-input agreement of the serving path: the same stream at
     reuse_tol 0.25 through a CPU and a GPU coalescer with the same round
     keys.
@@ -116,7 +118,9 @@ N1. The paper's neighbor table (Alg. 6) of both tables of the exact 1M
     a fresh build of the old codes followed by the new ones and to its
     plain version, timed against the build, the plain version and its
     bound. ``neighbor_dists`` launches are counted over the builds and
-    updates.
+    updates. Then the build at n_valid = 0 (the pure zero fill, against
+    the table's byte bound) and at n_valid = B, each ``torch.equal`` to
+    its plain version.
 B1. The baselines on the same state: 64 paper-protocol queries x 12
     targets through the Dynamic Prober (exact), Sampling 1 % (10,000
     rows a pair; ``l2dist_rows`` launches counted over this run alone and
@@ -814,7 +818,8 @@ def exact_profile_runs(torch, state, qs, taus, cfg, seed):
 KERNEL_NAMES = ("lsh_hash_kernel", "hamming_kernel", "query_lanes_kernel",
                 "l2dist_kernel", "l2dist_tiled_kernel", "l2dist_rows_kernel",
                 "adc_rows_kernel", "adc_batch_kernel", "slab_qualify_kernel",
-                "central_qualify_kernel", "cache_insert_kernel",
+                "central_qualify_kernel", "cache_insert_keys_kernel",
+                "cache_insert_chain_kernel", "cache_insert_write_kernel",
                 "neighbor_dists_kernel")
 LAUNCH_API = ("cudaLaunchKernel", "cuLaunchKernel")   # and their Ex forms
 
@@ -877,9 +882,11 @@ def launches_of(torch, fn) -> tuple[int, int]:
     return host, dev
 
 
-def kernel_device_us(torch, fn, name, iters=20) -> float:
-    """Profiler device time per launch of kernel ``name`` over ``iters``
-    calls of ``fn`` (0 when the profiler saw none)."""
+def kernel_device_us(torch, fn, name, iters=20, per_call=False) -> float:
+    """Profiler device time per launch of the kernels whose names hold
+    ``name`` over ``iters`` calls of ``fn`` (0 when the profiler saw
+    none); with ``per_call``, their sum per call of ``fn`` (a wrapper that
+    launches several kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -891,7 +898,7 @@ def kernel_device_us(torch, fn, name, iters=20) -> float:
         torch.cuda.synchronize()
     hits = [(_device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and name in e.key]
-    n = sum(c for _, c in hits)
+    n = iters if per_call and hits else sum(c for _, c in hits)
     return sum(t for t, _ in hits) / n if n else 0.0
 
 
@@ -1984,7 +1991,7 @@ def phase_cache_insert(torch, seed) -> dict:
                      iters=iters)
         dev_us = kernel_device_us(
             torch, lambda: ops.cache_insert(next(it), *lanes, match),
-            "cache_insert_kernel", iters=iters - 1)
+            "cache_insert_", iters=iters - 1, per_call=True)
         plain = [C.EstimateCache(*(t.clone() for t in cache))
                  for _ in range(4)]
         pit = iter(plain)
@@ -2008,7 +2015,40 @@ def phase_cache_insert(torch, seed) -> dict:
         if res is None:
             res = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=None)
     res["max_abs_err"] = err
+    lane_slope(torch, g, nl, k, res["bound"][0])
     return res
+
+
+def lane_slope(torch, g, nl, k, bound_ms_):
+    """The chain's measured floor: device time of ``cache_insert`` at the
+    serving shape (S = 1024, 64 lanes) with 1 active lane against all 64,
+    the difference a lane in ns and in SM clocks at the clock measured
+    under the 64-lane load."""
+    from repro_torch.cache import estimate_cache as C
+    from repro_torch.kernels import ops
+    cache, lanes = insert_inputs(torch, g, SERVE_CACHE, SERVE_BATCH, nl, k,
+                                 False)
+    us = {}
+    for n_act in (1, SERVE_BATCH):
+        act = torch.zeros(SERVE_BATCH, dtype=torch.bool, device="cuda")
+        act[:n_act] = True
+        la = lanes[:-1] + (act,)
+        fresh = iter([C.EstimateCache(*(t.clone() for t in cache))
+                      for _ in range(21)])
+        us[n_act] = kernel_device_us(
+            torch, lambda: ops.cache_insert(next(fresh), *la, True),
+            "cache_insert_", iters=20, per_call=True)
+    busy = C.EstimateCache(*(t.clone() for t in cache))
+    mhz = sorted(r[0] for r in clocks_under_load(
+        torch, lambda: ops.cache_insert(busy, *lanes, True), seconds=1.0))
+    clock = mhz[len(mhz) // 2] if mhz else max_sm_clock_hz() / 1e6
+    slope_ns = (us[SERVE_BATCH] - us[1]) / (SERVE_BATCH - 1) * 1e3
+    log(f"cache_insert per-lane slope (S = {SERVE_CACHE}, {SERVE_BATCH} "
+        f"lanes): device {us[1]:.2f} us at 1 active lane, "
+        f"{us[SERVE_BATCH]:.2f} us at {SERVE_BATCH}: {slope_ns:.1f} ns a "
+        f"lane = {slope_ns * clock / 1e3:.0f} clocks at {clock:.0f} MHz "
+        f"(SM clock under the 64-lane load, median of {len(mhz)} samples); "
+        f"the serving shape's byte bound {bound_ms_ * 1e3:.4f} us")
 
 
 def phase_serving_agreement(torch, cfg, seed):
@@ -2254,12 +2294,31 @@ def phase_neighbors(torch, state, cfg, seed):
         / INT32_OP_S * 1e3
     dev_us = kernel_device_us(torch, build_both, "neighbor_dists_kernel")
     upd_us = kernel_device_us(torch, update_both, "neighbor_dists_kernel")
+    edge = []
+    for n_valid in (0, cap):
+        got = ops.neighbor_dists(codes[0], n_valid, m)
+        want = ref.neighbor_dists(codes[0], n_valid, m, 0, cap, torch.zeros(
+            (cap, cap), dtype=torch.int8, device=dev))
+        if not torch.equal(got, want):
+            raise AssertionError(f"neighbor_dists at n_valid = {n_valid} "
+                                 "differs from its plain version")
+        del got, want
+        edge.append(kernel_device_us(
+            torch, lambda: ops.neighbor_dists(codes[0], n_valid, m),
+            "neighbor_dists_kernel"))
+    table_us = cap * cap / HBM_BYTES_S * 1e6
     log(f"neighbor_dists[{nl} x ({cap}, {cap}), K = {k}]: wrapper "
         f"{res['ms']:.4f} ms for both tables (CUDA events), device "
         f"{dev_us:.2f} us a table (profiler); plain {res['plain_ms']:.4f} ms, "
         f"torch.cdist(p=0) {res['library_ms']:.4f} ms; bounds: bytes "
         f"{tb:.4f} ms ({nbytes / 2 ** 20:.1f} MiB), compares {ti:.4f} ms "
         f"({ops_n:.4g} at {INT32_OP_S / 1e12:.1f} Top/s)")
+    log(f"neighbor_dists[({cap}, {cap}), K = {k}] at n_valid = 0 (the zero "
+        f"fill alone): device {edge[0]:.2f} us against the table's byte "
+        f"bound {table_us:.2f} us ({edge[0] and table_us / edge[0]:.3f} of "
+        f"it); at n_valid = {cap} (every tile live): {edge[1]:.2f} us "
+        f"(compares bound {cap * (cap + 1) / 2 * k / INT32_OP_S * 1e6:.2f} "
+        f"us once a pair); both torch.equal to the plain version")
     log(f"N1 Alg. 9 update ({new_rows} new codes, strips of "
         f"{[r * (2 * cap2 - r) for r in new_rows]} entries): {upd_ms:.4f} ms "
         f"against the build's {res['ms']:.4f} ms ({upd_ms / res['ms']:.4f}); "

@@ -39,8 +39,8 @@ SIGNATURES = {
     "adc_batch_u8": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
     "central_qualify": [_P] * 18 + [_I] * 15 + [_P],
-    "cache_insert": [_P] * 21 + [_I] * 5 + [_P],
-    "neighbor_dists_i8": [_P, _P] + [_I] * 7 + [_P],
+    "cache_insert": [_P] * 22 + [_I] * 8 + [_P],
+    "neighbor_dists_i8": [_P, _P] + [_I] * 10 + [_I64] * 2 + [_I] * 3 + [_P],
 }
 
 

@@ -717,6 +717,44 @@ _CACHE_FIELDS = (("qcodes", torch.int32, ("l", "k")),
                  ("valid", torch.bool, ()), ("ref", torch.bool, ()))
 
 
+class CachePlan(NamedTuple):
+    """How ``cache_insert`` (``csrc/cache.cu``) runs a call; the fields
+    are its last arguments, in order."""
+    threads: int        # the chain block: a power of two, 32..1024
+    smem: int           # the chain block's dynamic shared memory, bytes
+    cand_shared: int    # 1: the key ids' candidate slots in shared memory
+
+
+# lanes the chain stages at a time (LANE_CHUNK in csrc/cache.cu)
+_CACHE_LANE_CHUNK = 1024
+
+
+def cache_insert_plan(s: int, n: int) -> CachePlan:
+    """The chain block for S entries and n lanes: about 8 chunks of 8
+    entries a thread (a power of two of threads, 32..1024), and shared
+    memory for the entries' 16-bit key ids and keyed bits, the claim,
+    valid and first ref bitmaps and the staged lanes
+    (``cache_insert_chain_kernel``'s layout), plus a candidate slot for
+    each of the n key ids where that fits in the 227 KB a block may use
+    (in the scratch otherwise)."""
+    if not 0 < s <= 1 << 16 or not 0 < n <= 1 << 16:
+        raise ValueError(f"cache_insert takes 1..65536 entries and 1..65536 "
+                         f"lanes, got S={s}, n={n}")
+    chunks, words = -(-s // 8), -(-s // 32)
+    threads = min(1024, max(32, 1 << (-(-chunks // 8) - 1).bit_length()))
+    smem = 17 * chunks + 4 * (3 * words + _CACHE_LANE_CHUNK)
+    shared = smem + 4 * n <= _SMEM_LIMIT
+    return CachePlan(threads, smem + 4 * n * shared, int(shared))
+
+
+def cache_insert_scratch(s: int, n: int) -> int:
+    """int32 words of scratch a call takes: the lanes' and entries' key
+    ids (n rounded up to 4, S to 8: the entries' are read 16 bytes at a
+    time), each lane's slot, each slot's last writer, each key id's
+    candidate slot."""
+    return -(-n // 4) * 4 + -(-s // 8) * 8 + 2 * n + s
+
+
 def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
                  tau_keys: torch.Tensor, balls: torch.Tensor,
                  params_epoch: torch.Tensor, ests: torch.Tensor,
@@ -728,8 +766,9 @@ def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
     int32, ``qhash`` (n, 2) int64, ``tau_keys`` (n,) int32, ``balls`` and
     ``probed_k`` (n, L) int32, ``params_epoch`` 0-d int64, ``ests`` (n,)
     float32, ``nvisited`` (n,) int32, ``active`` (n,) bool. Returns the
-    evictions of live entries, a 0-d int32 tensor. One launch of one block
-    on the card (:func:`ref.cache_insert` is its plain version)."""
+    evictions of live entries, a 0-d int32 tensor. On the card one call
+    of ``csrc/cache.cu`` (key ids, the chain in one block, the fields'
+    writes; :func:`ref.cache_insert` is its plain version)."""
     lanes = (qcodes, qhash, tau_keys, balls, params_epoch, ests, nvisited,
              probed_k, active)
     if _on_cpu(*cache, *lanes):
@@ -757,23 +796,68 @@ def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
         _check(t, nm, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{nm}: expected {shape}, got {tuple(t.shape)}")
-    if not 0 < s <= 1 << 16 or n > 1 << 16:
-        raise ValueError(f"cache_insert takes 1..65536 entries and at most "
-                         f"65536 lanes, got S={s}, n={n}")
+    plan = cache_insert_plan(s, max(n, 1))
     if not n:
         return torch.zeros((), dtype=torch.int32, device=qcodes.device)
     n_evicted = torch.empty((), dtype=torch.int32, device=qcodes.device)
+    scratch = torch.empty(cache_insert_scratch(s, n), dtype=torch.int32,
+                          device=qcodes.device)
     _launch("cache_insert", "cache_insert",
             *(getattr(cache, f).data_ptr() for f, _, _ in _CACHE_FIELDS),
             cache.hand.data_ptr(), qcodes.data_ptr(), qhash.data_ptr(),
             tau_keys.data_ptr(), balls.data_ptr(), params_epoch.data_ptr(),
             ests.data_ptr(), nvisited.data_ptr(), probed_k.data_ptr(),
-            active.data_ptr(), n_evicted.data_ptr(), s, n, nl, nl * k,
-            int(match_qhash))
+            active.data_ptr(), n_evicted.data_ptr(), scratch.data_ptr(), s,
+            n, nl, nl * k, int(match_qhash), *plan)
     return n_evicted
 
 
 # ---- the bucket-neighbor table (Alg. 6 / 9) -------------------------------
+
+class NeighborPlan(NamedTuple):
+    """How ``neighbor_dists_i8`` (``csrc/neighbors.cu``) covers a call;
+    the fields are its arguments, in order."""
+    square: int         # 1: the whole table (upper triangle + zero fill)
+    tiles: int          # tile blocks (64 x 64 pairs each)
+    side: int           # square: live tiles a side; strip: column tiles
+    live: int           # square: the live square's side in rows
+    fill_a: int         # fill units of rows [0, live) x columns [live, B)
+    fill_b: int         # fill units of rows [live, B)
+    fill_blocks: int    # blocks of NEIGHBOR_FILL_UNITS units
+    smem: int           # dynamic shared memory of a block, bytes
+
+
+NEIGHBOR_TILE = 64
+NEIGHBOR_FILL_UNITS = 256 * 16
+
+
+def neighbor_dists_plan(b: int, k: int, n_valid: int, r0: int, r1: int,
+                        aligned: bool) -> NeighborPlan:
+    """The kernel's blocks for the entries with i or j in [r0, r1) of a
+    (b, b) table. The whole table (r0 = 0, r1 = b) is the upper triangle
+    of 64 x 64 tiles over the live square (n_valid rounded up to a tile,
+    at most b), each stored at (I, J) and transposed at (J, I), plus zero
+    fill of the rest in units of 16-byte pieces (bytes unless
+    ``aligned``). A strip is every tile of its rows against every column
+    tile, each stored in the row strip and transposed in the column
+    strip."""
+    t = NEIGHBOR_TILE
+    smem = 2 * k * (t + 4) * 4 + 2 * t * (t + 16)
+    if r0 == 0 and r1 == b:
+        side = -(-n_valid // t)
+        live = min(b, side * t)
+        wide = 16 if aligned else 1
+        fill_a = live * ((b - live) // wide)
+        fill_b = (b - live) * b // wide
+        if fill_a >= 1 << 32:
+            raise ValueError(f"neighbor_dists: a table of {b} rows needs "
+                             f"16-byte aligned rows")
+        return NeighborPlan(1, side * (side + 1) // 2, side, live, fill_a,
+                            fill_b, -(-(fill_a + fill_b)
+                                      // NEIGHBOR_FILL_UNITS), smem)
+    side = -(-b // t)
+    return NeighborPlan(0, -(-(r1 - r0) // t) * side, side, 0, 0, 0, 0, smem)
+
 
 def neighbor_dists(codes: torch.Tensor, n_valid: int, max_dist: int,
                    r0: int = 0, r1: int | None = None,
@@ -783,8 +867,7 @@ def neighbor_dists(codes: torch.Tensor, n_valid: int, max_dist: int,
     0 < d <= ``max_dist``, else 0. Only the entries with i or j in the row
     range [r0, r1) (default: every row) are written; the rest of ``out``
     is left as it is. ``out=None`` gives a new table, zero outside the
-    strips. One launch on the card (the row strip and its symmetric column
-    strip together)."""
+    strips. One launch on the card (:func:`neighbor_dists_plan`)."""
     cpu = _on_cpu(codes) if out is None else _on_cpu(codes, out)
     if not cpu:
         _check(codes, "codes", torch.int32, 2)
@@ -811,7 +894,9 @@ def neighbor_dists(codes: torch.Tensor, n_valid: int, max_dist: int,
     if not 0 < k <= 32:
         raise ValueError(f"neighbor_dists takes 1..32 functions, got K={k}")
     if r1 > r0:
-        aligned = int(b % 16 == 0 and out.data_ptr() % 16 == 0)
+        aligned = b % 16 == 0 and out.data_ptr() % 16 == 0
+        plan = neighbor_dists_plan(b, k, n_valid, r0, r1, aligned)
         _launch("neighbor_dists", "neighbor_dists_i8", codes.data_ptr(),
-                out.data_ptr(), b, k, n_valid, max_dist, r0, r1, aligned)
+                out.data_ptr(), b, k, n_valid, max_dist, r0, r1, *plan,
+                int(aligned))
     return out

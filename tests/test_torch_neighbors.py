@@ -10,10 +10,14 @@ reference's: ``build`` with and without padding rows, ``grow``, ``update``
 only). Rings ``ring(i, k)`` equal ``hamming_to_buckets(...) == k`` of both
 packages over the live rows. Inputs are numpy draws from the seeds named.
 
-The ``cuda``-marked tests hold the ``neighbor_dists`` kernel against its
-plain version on the card (ragged B, K in {1, 10, 32}, Alg. 9 strips at
-the table's edges) and skip elsewhere. The machine with the card has no
-jax, so this module imports it only inside the tests that use it."""
+The kernel's block schedule (``ops.neighbor_dists_plan``, decoded as the
+kernel decodes it) is checked on the CPU to write every entry of a table
+or of Alg. 9's strips once. The ``cuda``-marked tests hold the
+``neighbor_dists`` kernel against its plain version on the card (ragged
+B, K in {1, 10, 32}, n_valid = 0 and = B, Alg. 9 strips at the table's
+edges) and skip elsewhere. The machine with the card has no jax, so this
+module imports it only inside the tests that use it."""
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -194,6 +198,93 @@ def test_bridge_round_trip():
     assert back.max_dist == 3
 
 
+# ---- the kernel's block schedule (ops.neighbor_dists_plan) ----------------
+
+def _triangle(t):
+    """Tile t of the upper triangle, by columns (``triangle`` in
+    ``csrc/neighbors.cu``)."""
+    j = int((math.sqrt(8.0 * t + 1.0) - 1.0) * 0.5)
+    while (j + 1) * (j + 2) // 2 <= t:
+        j += 1
+    while j * (j + 1) // 2 > t:
+        j -= 1
+    return t - j * (j + 1) // 2, j
+
+
+def _writes(plan, b, r0, r1):
+    """How many times the kernel's blocks, decoded as
+    ``neighbor_dists_kernel`` decodes them, write each entry of a (b, b)
+    table, and the live tiles counted."""
+    ts, units = ops.NEIGHBOR_TILE, ops.NEIGHBOR_FILL_UNITS
+    n = np.zeros((b, b), np.int64)
+    flat = n.reshape(-1)
+    total = plan.tiles + plan.fill_blocks
+    wide = 1 if plan.fill_a + plan.fill_b == 0 else \
+        (b * b - plan.live * plan.live) // (plan.fill_a + plan.fill_b)
+    counted = 0
+    for x in range(total):
+        f0 = x * plan.fill_blocks // total
+        f1 = (x + 1) * plan.fill_blocks // total
+        if f1 > f0:
+            wa = (b - plan.live) // wide
+            for u in range(f0 * units,
+                           min(plan.fill_a + plan.fill_b, (f0 + 1) * units)):
+                if u < plan.fill_a:
+                    row = u // wa
+                    off = row * b + plan.live + (u - row * wa) * wide
+                else:
+                    off = plan.live * b + (u - plan.fill_a) * wide
+                flat[off:off + wide] += 1
+            continue
+        t = x - f1
+        if plan.square:
+            ti, tj = _triangle(t)
+            row0, col0, rhi = ti * ts, tj * ts, min(ti * ts + ts, b)
+            mirror = ti != tj
+        else:
+            row0 = r0 + (t // plan.side) * ts
+            col0 = (t % plan.side) * ts
+            rhi, mirror = min(row0 + ts, r1), True
+        chi = min(col0 + ts, b)
+        counted += 1
+        n[row0:rhi, col0:chi] += 1
+        if mirror:
+            n[col0:chi, row0:rhi] += 1
+    return n, counted
+
+
+@pytest.mark.parametrize("b,n_valid,aligned", [
+    (8192 // 16, 4281 // 16, True), (512, 363, True), (512, 0, True),
+    (512, 512, True), (512, 1, True), (1000, 999, False), (17, 5, False),
+    (4099, 4099, False), (320, 64, True), (320, 65, True), (64, 64, True)])
+def test_neighbor_dists_plan_writes_each_entry_once(b, n_valid, aligned):
+    """Alg. 6: the live square's upper triangle, mirrored, and the zero
+    fill of the rest write every entry of the table exactly once, and
+    only the n(n+1)/2 tile pairs of the live square are counted."""
+    plan = ops.neighbor_dists_plan(b, 10, n_valid, 0, b, aligned)
+    n, counted = _writes(plan, b, 0, b)
+    assert (n == 1).all(), np.argwhere(n != 1)[:5]
+    side = -(-n_valid // ops.NEIGHBOR_TILE)
+    assert counted == plan.tiles == side * (side + 1) // 2
+    assert plan.smem == 2 * 10 * 68 * 4 + 2 * 64 * 80
+
+
+@pytest.mark.parametrize("b,r0,r1", [
+    (1000, 0, 1), (1000, 999, 1000), (1000, 0, 999), (1000, 13, 29),
+    (1024, 16, 32), (1024, 255, 513), (300, 150, 151), (8192 // 8, 997, 1023)])
+def test_neighbor_dists_plan_writes_each_strip_entry_once(b, r0, r1):
+    """Alg. 9: the new rows' strip and its mirror write every entry with
+    i or j in [r0, r1) once (the new-by-new block twice, with the same
+    values) and nothing else; the strip is counted once, not twice."""
+    plan = ops.neighbor_dists_plan(b, 10, r1, r0, r1, b % 16 == 0)
+    n, counted = _writes(plan, b, r0, r1)
+    strip = np.zeros(b, bool)
+    strip[r0:r1] = True
+    want = strip[:, None].astype(int) + strip[None, :].astype(int)
+    assert (n == want).all(), np.argwhere(n != want)[:5]
+    assert counted == plan.tiles == -(-(r1 - r0) // 64) * -(-b // 64)
+
+
 # ---- on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -219,6 +310,22 @@ def test_cuda_neighbor_dists_matches_plain(cuda_gen, b, k):
         want = _plain(codes, n_valid, max_dist, 0, b,
                       torch.zeros((b, b), dtype=torch.int8, device="cuda"))
         assert torch.equal(got, want), (b, k, n_valid, max_dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 64, 1000, 4096])
+@pytest.mark.parametrize("k", [1, 10, 32])
+def test_cuda_neighbor_dists_dead_and_full(cuda_gen, b, k):
+    """The build at n_valid = 0 (the pure zero fill, over a table that
+    held other values) and at n_valid = b (no fill, every tile live)."""
+    codes = torch.randint(-1, 2, (b, k), generator=cuda_gen, device="cuda",
+                          dtype=torch.int32)
+    for n_valid in (0, b):
+        out = torch.full((b, b), 9, dtype=torch.int8, device="cuda")
+        got = ops.neighbor_dists(codes, n_valid, k, out=out)
+        want = _plain(codes, n_valid, k, 0, b, out)
+        assert torch.equal(got, want), (b, k, n_valid)
+    assert not bool(ops.neighbor_dists(codes, 0, k).any())
 
 
 @pytest.mark.cuda

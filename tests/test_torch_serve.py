@@ -486,15 +486,9 @@ def _card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,n,full", [(1024, 64, False), (1024, 256, True),
-                                      (65536, 64, False), (65536, 256, True),
-                                      (4, 256, False), (1, 3, True),
-                                      (1000, 7, False)])
-@pytest.mark.parametrize("match_qhash", [True, False])
-def test_cuda_cache_insert_matches_plain(s, n, full, match_qhash):
-    g = _card()
-    cache, lanes = _insert_inputs(g, s, n, 2, 10, "cuda", full)
+def _kernel_against_plain(cache, lanes, match_qhash):
+    """The kernel on ``cache`` in place against the plain version on a CPU
+    copy: every field and the eviction count equal, one launch."""
     want_cache = C.EstimateCache(*(t.cpu() for t in cache))
     want = ref.cache_insert(want_cache, *(t.cpu() for t in lanes),
                             match_qhash)
@@ -505,6 +499,172 @@ def test_cuda_cache_insert_matches_plain(s, n, full, match_qhash):
     assert int(got) == int(want)
     for name, a, b in zip(C.EstimateCache._fields, cache, want_cache):
         assert torch.equal(a.cpu(), b), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,n,full", [(1024, 64, False), (1024, 256, True),
+                                      (65536, 64, False), (65536, 256, True),
+                                      (4, 256, False), (1, 3, True),
+                                      (1000, 7, False), (1, 256, False),
+                                      (1000, 256, True), (16, 65536, False)])
+@pytest.mark.parametrize("match_qhash", [True, False])
+def test_cuda_cache_insert_matches_plain(s, n, full, match_qhash):
+    """Random caches (many duplicate keys, more without the fingerprint),
+    lanes that repeat earlier lanes' keys, lanes far outnumbering the
+    entries (S = 1, 4, 16), S not a power of two, the full sweep of a
+    cache whose ref bits are all set, and the lane limit (65,536)."""
+    g = _card()
+    cache, lanes = _insert_inputs(g, s, n, 2, 10, "cuda", full)
+    _kernel_against_plain(cache, lanes, match_qhash)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_keys", [1, 4])
+@pytest.mark.parametrize("match_qhash", [True, False])
+def test_cuda_cache_insert_dense_duplicate_keys(n_keys, match_qhash):
+    """Every entry valid and holding one of ``n_keys`` keys, and the lanes
+    those keys plus new ones: the lowest position of a key wins, until a
+    new key evicts it."""
+    g = _card()
+    s, n = 1024, 256
+    cache, lanes = _insert_inputs(g, s, n, 2, 10, "cuda")
+    pick = torch.randint(0, n_keys, (s,), generator=g, device="cuda")
+    lane_pick = torch.randint(0, n_keys + 2, (n,), generator=g,
+                              device="cuda")
+    src = torch.randint(0, s, (n_keys + 2,), generator=g, device="cuda")
+    keys = (cache.qcodes[src].clone(), cache.qhash[src].clone(),
+            cache.tau_key[src].clone())
+    keys[0][n_keys:] += 7                      # two keys no entry holds
+    cache = cache._replace(qcodes=keys[0][pick].contiguous(),
+                           qhash=keys[1][pick].contiguous(),
+                           tau_key=keys[2][pick].contiguous(),
+                           valid=torch.ones_like(cache.valid))
+    lanes = (keys[0][lane_pick].contiguous(),
+             keys[1][lane_pick].contiguous(),
+             keys[2][lane_pick].contiguous()) + lanes[3:]
+    _kernel_against_plain(cache, lanes, match_qhash)
+
+
+def _small_cache(s, keys, valid, ref_bits, hand, dev):
+    """A cache of ``s`` entries whose entry p holds key ``keys[p]`` (codes
+    and tau all equal to it, the fingerprint (key, 0)) and est p."""
+    kk = torch.tensor(keys, dtype=torch.int32)
+    nl, k = 2, 3
+    return C.EstimateCache(*(t.to(dev) for t in (
+        kk[:, None, None].expand(s, nl, k).contiguous(),
+        torch.stack([kk.long(), torch.zeros(s, dtype=torch.int64)], 1),
+        kk.clone(), torch.zeros((s, nl), dtype=torch.int32),
+        torch.zeros(s, dtype=torch.int64),
+        torch.zeros((s, nl), dtype=torch.int32),
+        torch.arange(s, dtype=torch.float32),
+        torch.zeros(s, dtype=torch.int32),
+        torch.tensor(valid, dtype=torch.bool),
+        torch.tensor(ref_bits, dtype=torch.bool),
+        torch.tensor(hand, dtype=torch.int32))))
+
+
+def _small_lanes(keys, active, dev):
+    """Lanes whose lane i holds key ``keys[i]`` (as :func:`_small_cache`)
+    and est 100 + i."""
+    kk = torch.tensor(keys, dtype=torch.int32)
+    n, nl, k = len(keys), 2, 3
+    return tuple(t.to(dev) for t in (
+        kk[:, None, None].expand(n, nl, k).contiguous(),
+        torch.stack([kk.long(), torch.zeros(n, dtype=torch.int64)], 1),
+        kk.clone(), torch.ones((n, nl), dtype=torch.int32),
+        torch.tensor(1, dtype=torch.int64),
+        100 + torch.arange(n, dtype=torch.float32),
+        torch.ones(n, dtype=torch.int32),
+        torch.ones((n, nl), dtype=torch.int32),
+        torch.tensor(active, dtype=torch.bool)))
+
+
+def _insert_hazard(dev, cache, lanes, match_qhash):
+    if dev == "cuda":
+        return int(_kernel_against_plain(cache, lanes, match_qhash))
+    return int(ops.cache_insert(cache, *lanes, match_qhash))
+
+
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("duplicate", [True, False])
+def test_cache_insert_evicted_entry_no_longer_matches(dev, duplicate):
+    """Lane 0 (a new key) evicts entry 5, which held lane 1's key: lane 1
+    must not match it. With the key also at entry 7, lane 1 takes 7;
+    without, it sweeps on from the hand (now 5) to the first entry whose
+    ref bit lane 0's sweep cleared (3)."""
+    if dev == "cuda":
+        _card()
+    keys = [10, 11, 12, 13, 14, 15, 16, 15 if duplicate else 17]
+    cache = _small_cache(8, keys, [1] * 8, [1, 1, 1, 1, 1, 0, 1, 1], 2, dev)
+    lanes = _small_lanes([99, 15], [True, True], dev)
+    evicted = _insert_hazard(dev, cache, lanes, True)
+    est = cache.est.cpu().tolist()
+    assert est[5] == 100
+    if duplicate:
+        assert evicted == 1 and int(cache.hand) == 5 and est[7] == 101
+        assert cache.ref.cpu().tolist() == [1, 1, 1, 0, 0, 0, 1, 0]
+    else:
+        assert evicted == 2 and int(cache.hand) == 3 and est[3] == 101
+        assert cache.ref.cpu().tolist() == [0] * 8
+    assert bool(cache.valid.all())
+
+
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("present", [True, False])
+def test_cache_insert_every_lane_one_key(dev, present):
+    """256 lanes (a third inactive) all holding one key: held by the
+    valid entries 20 and 40 (and the invalid entry 10), every active lane
+    lands on 20; held by none, the first active lane evicts at the hand
+    and every later one lands on its slot."""
+    if dev == "cuda":
+        _card()
+    s, n = 64, 256
+    keys = [1000 + p for p in range(s)]
+    valid = [1] * s
+    if present:
+        keys[10] = keys[20] = keys[40] = 7
+        valid[10] = 0
+    cache = _small_cache(s, keys, valid, [1] * s, 5, dev)
+    active = [i % 3 != 0 for i in range(n)]
+    lanes = _small_lanes([7] * n, active, dev)
+    evicted = _insert_hazard(dev, cache, lanes, False)
+    est = cache.est.cpu().tolist()
+    slot = 20 if present else 6
+    assert est[slot] == 100 + max(i for i in range(n) if active[i])
+    assert evicted == (0 if present else 1)
+    assert int(cache.hand) == (5 if present else 6)
+    if present:
+        assert est[40] == 40 and not bool(cache.valid[10])
+    assert not bool(cache.ref[slot])
+
+
+@pytest.mark.parametrize("s,n", [(1, 1), (1000, 7), (1024, 64),
+                                 (65536, 256), (65536, 65536), (1, 65536)])
+def test_cache_insert_plan_fits_shared_memory(s, n):
+    """The chain block: a power of two of threads, 32..1024, with at most
+    8 chunks of 8 entries a thread below 1024, and its staged state within
+    the 227 KB a block may use at every S and lane count the wrapper
+    takes, the candidate slots with it where they fit (not with 65,536
+    lanes); the scratch holds everything else."""
+    plan = ops.cache_insert_plan(s, n)
+    t = plan.threads
+    assert t & (t - 1) == 0 and 32 <= t <= 1024
+    assert t == 1024 or 8 * t >= -(-s // 8)
+    assert t == 32 or 4 * t < -(-s // 8)
+    assert 16 * -(-s // 8) < plan.smem <= ops._SMEM_LIMIT
+    base = plan.smem - 4 * n * plan.cand_shared
+    assert (base + 4 * n <= ops._SMEM_LIMIT) == bool(plan.cand_shared)
+    assert plan.cand_shared == (n < 65536)
+    assert ops.cache_insert_scratch(s, n) >= 3 * n + 2 * s
+
+
+@pytest.mark.parametrize("s,n", [(0, 1), (65537, 1), (1, 0), (1, 65537)])
+def test_cache_insert_plan_refuses_out_of_range(s, n):
+    with pytest.raises(ValueError, match="65536"):
+        ops.cache_insert_plan(s, n)
 
 
 @pytest.mark.cuda
