@@ -5,7 +5,7 @@
 
 ``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
 draws, without the main path's q-errors) and prints no result lines;
-``--serve-only`` runs phases 1-2, L1 and L2 alone and prints none either.
+``--serve-only`` runs phases 1-2 and L1-L3 alone and prints none either.
 
 Phases, in order; each raises on failure:
 
@@ -205,6 +205,36 @@ L2. The same CLI with ``--scale smoke --shards 4`` in ``sync`` and
     index, the checks of L1 on a CPU copy of the shard against the card,
     in sync mode (``estimate_batch_pooled``, the group's collectives on
     both sides).
+
+Then the other model families, through the serve steps a user calls:
+
+L3. ``rwkv6-1.6b``, ``recurrentgemma-9b``, ``whisper-medium`` and
+    ``qwen3-moe-30b-a3b`` in turn, each at its published config (full
+    width; full depth where the weights fit beside ``L3_HEADROOM``, else
+    the most layers that do, logged), random bfloat16 weights from the
+    seed, each freed before the next. For each: parameters, GiB and init
+    seconds; ``serve.step.make_prefill_step`` on an input that takes the
+    family's long-sequence route (``L3_MODELS``) and 16 steps of
+    ``make_decode_step`` over 4 slots, CUDA-event ms beside a step's byte
+    bound (the weights a step reads, every expert for moe, and its cache);
+    a profile of each (launch calls, busy share, peak memory). Fatal:
+    teacher-forced ``decode_step`` against ``forward`` (whisper: against
+    ``decode`` on the same ``prefill_cross``; moe with room for every
+    token, so that forward drops none) on 16 tokens in bfloat16, greedy
+    tokens equal wherever forward's top-2 gap exceeds ``L1_LOGIT_TOL`` and
+    the max |diff| within it, or, for ``L3_F32_COPY`` (where bfloat16
+    rounding alone exceeds it; the max logged), within ``L3_F32_TOL`` on a
+    float32 copy at full width (moe's depth cut to fit); the SDPA route
+    against plain ``_sdpa`` within ``L1_SDPA_TOL`` for whisper's encoder
+    and cross-attention and rglru's ``windowed_attention``; in float32,
+    rwkv6's chunked WKV against the sequential one on the first layer's
+    r, k, v, w (``L3_WKV_TOL``) and rglru's doubling scan against a
+    sequential loop on the first recurrent block's (a, b) at S = 4096
+    (``L3_SCAN_TOL``); moe's stable top-k picks ``torch.topk``'s experts
+    wherever the k-th and (k+1)-th gates differ. Logged for moe: the
+    assignments forward drops at ``capacity_factor`` 1.25 over the prefill
+    batch and over the check's sequence, and the gate ties at the k-th
+    expert.
 
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
@@ -3313,13 +3343,411 @@ def phase_sharded_planner(torch, seed, dev="cuda"):
             f"and nvisited equal; {r['seconds']:.1f} s")
 
 
+# L3: each family at its published config through the serve steps:
+# (arch, prefill batch, prefill length or encoder frames, decode cache
+# rows). The prefill lengths take each family's long-sequence route:
+# rwkv6's chunked WKV (four chunks of 128), rglru's windowed attention
+# past its 2048 window, whisper's 30 s of audio (1500 encoder frames);
+# moe four sequences of 64. Decode: 4 slots, 16 steps; rglru's cache
+# rows give its 2048-row window ring, whisper's its 448-token decoder.
+L3_MODELS = (("rwkv6-1.6b", 4, 512, 256),
+             ("recurrentgemma-9b", 1, 4096, 4096),
+             ("whisper-medium", 4, 1500, 448),
+             ("qwen3-moe-30b-a3b", 4, 64, 256))
+L3_SLOTS, L3_STEPS, L3_CHECK_LEN = 4, 16, 16
+L3_HEADROOM = 8 * 2 ** 30    # device bytes kept free beside the weights
+# float32: the reference's test_rwkv_chunked_equals_sequential tolerance;
+# the doubling scan rounds at most log2(4096) = 12 times an element where
+# the loop rounds once a step, both contracting (0 < a < 1)
+L3_WKV_TOL, L3_SCAN_TOL = 2e-3, 1e-5
+# Where bfloat16 rounding alone takes decode past L1_LOGIT_TOL from
+# forward, the decode check's max |diff| runs on a float32 copy at full
+# width (depth cut only if it does not fit) and the bfloat16 one is logged,
+# its greedy tokens still held. recurrentgemma-9b: 0.37-0.44 in bfloat16
+# over 38 layers on four sequences, 6e-5 and 1e-4 in float32. qwen3-moe:
+# 0.258, its router's bfloat16 logits tie at the 8th expert (794 of 12,288
+# token-layer pairs of the prefill batch), so rounding flips which expert
+# runs. (rwkv6's float32 gap is 3e-2 at 24 layers and grows with depth in
+# the reference too, 1.2e-5 at 1 layer and 1.4e-4 at 4: no copy for it)
+L3_F32_COPY = ("recurrentgemma-9b", "qwen3-moe-30b-a3b")
+L3_F32_TOL = 1e-3
+
+
+def phase_families(torch, seed, dev="cuda"):
+    """L3: each of ``L3_MODELS`` in turn (:func:`family_run`), the model
+    freed before the next."""
+    import gc
+    for i, (arch, b, s, rows) in enumerate(L3_MODELS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_run(torch, arch, b, s, rows, seed + 20 + i, torch.device(dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def weight_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def fit_depth(torch, cfg, dev):
+    """``cfg`` with the most layers (at most its own) whose weights fit
+    beside ``L3_HEADROOM`` in the card's free memory: the width is never
+    cut."""
+    from repro_torch.models import get_family
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else 2 ** 62
+    n = cfg.n_layers
+    while n > 1 and weight_bytes(get_family(cfg).init(
+            cfg.replace(n_layers=n), torch.Generator(), "meta")) \
+            + L3_HEADROOM > free:
+        n -= 1
+    return cfg.replace(n_layers=n)
+
+
+def step_bytes(model, cfg, cache) -> int:
+    """Bytes a decode step reads: every weight but the embedding rows it
+    gathers (the whole table when the unembedding is tied to it) and
+    whisper's encoder and positions; and every cache tensor."""
+    skip = ("enc_layers.", "enc_norm.", "dec_pos")
+    if not cfg.tie_embeddings:
+        skip += ("embed.embedding",)
+    w = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+            if not n.startswith(skip))
+
+    def leaves(c):
+        for v in c.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+    return w + sum(t.numel() * t.element_size() for t in leaves(cache))
+
+
+def l3_batch(torch, cfg, b, s, g, dev):
+    """The prefill input: ``b`` x ``s`` tokens, or whisper's ``b`` x ``s``
+    encoder frames (stub embeddings)."""
+    if cfg.input_mode == "encdec":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=g,
+                                      device=dev).to(cfg.torch_dtype)}
+    return {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                    device=dev)}
+
+
+def decode_vs_forward(torch, fam, model, cfg, toks, dev, enc=None):
+    """Teacher-forced decode of ``toks`` (1, T) against forward (whisper:
+    against ``decode`` given the encoder output ``enc``, after
+    ``prefill_cross`` of it), caches in ``cfg.dtype``'s precision: (max
+    |diff| of the logits, whether the greedy tokens are equal wherever
+    forward's top-2 gap exceeds ``L1_LOGIT_TOL``, how many positions have
+    such a gap)."""
+    t = toks.shape[1]
+    dt = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    with torch.no_grad():
+        if enc is None:
+            full = fam.forward(model, {"tokens": toks}, cfg)[0]
+            cache = fam.init_cache(cfg, 1, t, dtype=dt, device=dev)
+        else:
+            full = fam.decode(model, toks, enc, cfg)[0]
+            cache = fam.prefill_cross(model, enc, fam.init_cache(
+                cfg, 1, t, dtype=dt, enc_len=enc.shape[1], device=dev), cfg)
+    outs = []
+    for i in range(t):
+        logits, cache = fam.decode_step(model, cache, toks[:, i], cfg)
+        outs.append(logits[0])
+    dec = torch.stack(outs)
+    top2 = full.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > L1_LOGIT_TOL
+    same = dec.argmax(-1) == full.argmax(-1)
+    return (float((dec - full).abs().max()), bool(same[clear].all()),
+            int(clear.sum()))
+
+
+def no_drops(cfg):
+    """moe: ``cfg`` with a capacity for every token of a group (c = S), so
+    that forward drops nothing, as decode's groups of B tokens do not."""
+    if cfg.family != "moe":
+        return cfg
+    return cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def f32_twin(torch, arch, seed, dev):
+    """Decode vs forward on a float32 copy of ``arch`` at its published
+    width (its depth cut only if float32 weights do not fit, logged): the
+    cache's correctness without bfloat16 rounding; fatal beyond
+    ``L3_F32_TOL``."""
+    from repro_torch import configs
+    from repro_torch.models import get_family
+    published = configs.get_config(arch)
+    cfg = no_drops(fit_depth(torch, published.replace(dtype="float32"),
+                             dev))
+    fam = get_family(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    model = fam.init(cfg, g, dev)
+    toks = torch.randint(0, cfg.vocab, (1, L3_CHECK_LEN), generator=g,
+                         device=dev)
+    diff, _, _ = decode_vs_forward(torch, fam, model, cfg, toks, dev)
+    log(f"L3 {arch} float32 copy ({cfg.n_layers} of {published.n_layers} "
+        f"layers{', capacity for every token' if cfg.family == 'moe' else ''}"
+        f", {weight_bytes(model) / 2 ** 30:.3f} GiB): decode vs "
+        f"forward ({L3_CHECK_LEN} tokens) max |diff| {diff:.3e} (tol "
+        f"{L3_F32_TOL})")
+    if not diff <= L3_F32_TOL:
+        raise SystemExit(f"L3 {arch}: float32 decode_step disagrees with "
+                         "forward")
+
+
+def routes_agree(torch, tag, fn):
+    """``fn()`` with ``layers.attend`` on its card route (SDPA) and with
+    plain ``_sdpa`` patched in: max |diff|, times and SDPA's kernels;
+    fatal beyond ``L1_SDPA_TOL``."""
+    from repro_torch.models import layers as L
+    route = L.attend
+    with torch.no_grad():
+        lib = fn()
+        ms_l = cuda_ms(torch, fn, iters=3)
+        kernels = sdpa_kernels(torch, fn)
+        L.attend = L._sdpa
+        try:
+            plain = fn()
+            ms_p = cuda_ms(torch, fn, iters=3)
+        finally:
+            L.attend = route
+    d = float((lib.float() - plain.float()).abs().max())
+    log(f"{tag}: SDPA vs plain _sdpa max |diff| {d:.6f} (tol {L1_SDPA_TOL}, "
+        f"outputs up to {float(plain.float().abs().max()):.3f}); SDPA "
+        f"{ms_l:.4f} ms, plain {ms_p:.4f} ms; SDPA backend kernels: "
+        f"{kernels}")
+    if not d <= L1_SDPA_TOL:
+        raise SystemExit(f"{tag}: SDPA disagrees with plain _sdpa")
+
+
+def moe_routing(torch, model, toks, cfg):
+    """moe's forward over ``toks`` layer by layer, its router read at each
+    layer: (the (token, slot) assignments dropped at the capacity, the
+    (token, layer) pairs with a drop, the tokens whose k-th and (k+1)-th
+    gates tie, the untied tokens where the stable top-k's experts differ
+    from ``torch.topk``'s)."""
+    from repro_torch.models import layers as L, moe as M, transformer as T
+    k, e = cfg.top_k, cfg.n_experts
+    dropped = pairs = ties = differ = 0
+    with torch.no_grad():
+        x = L.embed(model.embed, toks, cfg)
+        rope = T._rope(x, cfg)
+        for blk in model.layers:
+            h = x + T._attn(blk.attn, L.apply_norm(blk.ln1, x, cfg), cfg,
+                            rope)
+            hn = L.apply_norm(blk.ln2, h, cfg)
+            gates = torch.softmax((hn @ blk.moe.router.to(hn.dtype)).float(),
+                                  dim=-1)
+            _, topi = M.top_k(gates, k)
+            srt = torch.sort(gates, dim=-1, descending=True).values
+            tie = srt[..., k - 1] == srt[..., k]
+            lib = torch.topk(gates, k).indices
+            same = (topi.sort(-1).values == lib.sort(-1).values).all(-1)
+            _, keep = M.dispatch(topi, e, M.capacity(cfg, toks.shape[1]))
+            dropped += int((~keep).sum())
+            pairs += int((~keep).any(-1).sum())
+            ties += int(tie.sum())
+            differ += int((~same & ~tie).sum())
+            x = h + M.apply_moe(blk.moe, hn, cfg)
+    return dropped, pairs, ties, differ
+
+
+def moe_checks(torch, model, cfg, prefill_toks, toks, tag):
+    """moe: the assignments forward drops over the prefill batch and over
+    the decode check's sequence ``toks`` at ``cfg``'s capacity, the gate
+    ties at the k-th expert, and the top-k rule (fatal)."""
+    from repro_torch.models import moe as M
+    for what, t in (("the prefill batch", prefill_toks),
+                    ("the decode check's sequence", toks)):
+        dropped, pairs, ties, differ = moe_routing(torch, model, t, cfg)
+        n = t.numel() * cfg.n_layers
+        log(f"{tag} routing over {what} {tuple(t.shape)} (capacity_factor "
+            f"{cfg.capacity_factor}: {M.capacity(cfg, t.shape[1])} slots an "
+            f"expert a sequence): {dropped} of {n * cfg.top_k} (token, slot, "
+            f"layer) assignments dropped, at {pairs} of "
+            f"{n} (token, layer) pairs; k-th / "
+            f"(k+1)-th gate ties at {ties}; stable top-k and torch.topk pick "
+            f"other experts at {differ} untied")
+        if differ:
+            raise SystemExit(f"{tag}: stable top-k and torch.topk disagree")
+
+
+def family_checks(torch, model, cfg, batch, tag):
+    """The family's own fatal checks: SDPA against plain for whisper's
+    encoder and cross-attention and rglru's windowed attention; rwkv6's
+    chunked WKV against the sequential one and rglru's doubling scan
+    against a loop, in float32, on the first layer's real inputs."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L, rglru as G, rwkv6 as R, \
+        whisper as W
+    with torch.no_grad():
+        if cfg.family == "whisper":
+            lp = model.enc_layers[0]
+            h = L.apply_norm(lp.ln1, batch["frames"], cfg)
+            routes_agree(torch, f"{tag} encoder attention "
+                         f"{tuple(h.shape)}", lambda: L.causal_attention(
+                             lp.attn, h, cfg, causal=False))
+            dp = model.dec_layers[0]
+            enc = W.encode(model, batch["frames"], cfg)
+            kv = W._enc_kv(dp.cross_attn, enc, cfg)
+            toks = torch.zeros((enc.shape[0], L3_CHECK_LEN), dtype=torch.long,
+                               device=enc.device)
+            hq = L.apply_norm(dp.ln2, L.embed(model.embed, toks, cfg), cfg)
+            routes_agree(torch, f"{tag} cross-attention {tuple(hq.shape)} "
+                         f"over {enc.shape[1]} frames",
+                         lambda: W._cross_attention(dp.cross_attn, hq, kv,
+                                                    cfg))
+        if cfg.family == "rglru":
+            x = L.embed(model.embed, batch["tokens"], cfg)
+            blk = model.groups[0].attn
+            h = L.apply_norm(blk.ln1, x, cfg)
+            routes_agree(torch, f"{tag} windowed_attention {tuple(h.shape)}, "
+                         f"window {cfg.window}",
+                         lambda: L.windowed_attention(blk.mix, h, cfg))
+            rec = model.groups[0].rec1
+            u = G._causal_conv(rec.mix, L.apply_norm(rec.ln1, x, cfg)
+                               @ rec.mix.w_in.to(x.dtype))
+            a, b = G._lru_coeffs(rec.mix, u)
+            got = G.linear_scan(a, b)
+            want = torch.empty_like(b)
+            h = torch.zeros_like(b[:, 0])
+            for t in range(b.shape[1]):
+                h = a[:, t] * h + b[:, t]
+                want[:, t] = h
+            d = float((got - want).abs().max())
+            ms_scan = cuda_ms(torch, lambda: G.linear_scan(a, b), iters=5)
+            log(f"{tag} doubling scan vs a sequential loop ((a, b) "
+                f"{tuple(b.shape)} of the first recurrent block, float32): "
+                f"max |diff| {d:.3e} (rtol = atol = {L3_SCAN_TOL}, |h| up to "
+                f"{float(want.abs().max()):.3f}); scan {ms_scan:.4f} ms")
+            torch.testing.assert_close(got, want, rtol=L3_SCAN_TOL,
+                                       atol=L3_SCAN_TOL)
+        if cfg.family == "rwkv6":
+            blk = model.layers[0]
+            x = L.apply_norm(blk.ln1, L.embed(model.embed, batch["tokens"],
+                                              cfg), cfg)
+            xx = F.pad(x, (0, 0, 1, 0))[:, :-1]
+            r, k, v, _, w = R._tm_projections(blk.tm, x, xx, cfg)
+            u = blk.tm.u.reshape(cfg.rwkv_heads, 64)
+            got = R._wkv_chunked(r, k, v, w, u, cfg.rwkv_chunk)
+            want = R._wkv_sequential(r, k, v, w, u)
+            d = float((got - want).abs().max())
+            ms_c = cuda_ms(torch, lambda: R._wkv_chunked(
+                r, k, v, w, u, cfg.rwkv_chunk), iters=3)
+            ms_s = cuda_ms(torch, lambda: R._wkv_sequential(r, k, v, w, u),
+                           iters=1)
+            log(f"{tag} chunked WKV vs sequential (r, k, v, w "
+                f"{tuple(r.shape)} of layer 0, chunk {cfg.rwkv_chunk}, "
+                f"float32): max |diff| {d:.3e} (rtol = atol = {L3_WKV_TOL}, "
+                f"outputs up to {float(want.abs().max()):.3f}); chunked "
+                f"{ms_c:.3f} ms, sequential {ms_s:.3f} ms")
+            torch.testing.assert_close(got, want, rtol=L3_WKV_TOL,
+                                       atol=L3_WKV_TOL)
+
+
+def family_run(torch, arch, b, s, rows, seed, dev):
+    """One family of L3: init at the published width, prefill, 16 decode
+    steps and their profile, then the checks (the module docstring)."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.models import get_family
+    from repro_torch.serve import step
+    published = configs.get_config(arch)
+    cfg = fit_depth(torch, published, dev)
+    fam = get_family(cfg)
+    tag = f"L3 {arch}"
+    if cfg.replace(n_layers=published.n_layers) != published:
+        raise SystemExit(f"{tag}: not the published width")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = fam.init(cfg, g, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    depth = ("full depth" if cfg.n_layers == published.n_layers else
+             f"DEPTH CUT from {published.n_layers} layers (the weights and "
+             f"{L3_HEADROOM / 2 ** 30:.0f} GiB must fit)")
+    log(f"{tag} ({smi_line()}): full width (d_model {cfg.d_model}, d_ff "
+        f"{cfg.d_ff}, {cfg.n_heads} heads / {cfg.n_kv} KV x {cfg.hd}, vocab "
+        f"{cfg.vocab}, experts {cfg.n_experts} top-{cfg.top_k}, window "
+        f"{cfg.window}, encoder layers {cfg.enc_layers}), {cfg.n_layers} "
+        f"layers, {depth}; {sum(p.numel() for p in model.parameters()):,} "
+        f"parameters (cfg.param_count() {cfg.param_count():,}), "
+        f"{weight_bytes(model) / 2 ** 30:.3f} GiB, init {init_s:.3f} s")
+    batch = l3_batch(torch, cfg, b, s, g, dev)
+    prefill = step.make_prefill_step(cfg)
+    logits = prefill(model, batch)
+    if logits.shape != (b, cfg.vocab) or not bool(logits.isfinite().all()):
+        raise SystemExit(f"{tag}: prefill logits {tuple(logits.shape)} not "
+                         "(B, V) or not finite")
+    pre_ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3)
+    # 16 decode steps over 4 slots, each timed by CUDA events
+    kw = dict(enc_len=s) if cfg.family == "whisper" else {}
+    cache = fam.init_cache(cfg, L3_SLOTS, rows, device=dev, **kw)
+    if kw:
+        with torch.no_grad():
+            enc = fam.encode(model, batch["frames"][:L3_SLOTS], cfg)
+        cache = fam.prefill_cross(model, enc, cache, cfg)
+    decode = step.make_decode_step(cfg)
+    tok = torch.randint(0, cfg.vocab, (L3_SLOTS,), generator=g, device=dev)
+    nbytes = step_bytes(model, cfg, cache)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(L3_STEPS + 1)]
+    ev[0].record()
+    for i in range(L3_STEPS):
+        logits, cache = decode(model, cache, tok)
+        tok = logits.argmax(-1)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(L3_STEPS)]
+    if not bool(logits.isfinite().all()) or int(cache["pos"]) != L3_STEPS:
+        raise SystemExit(f"{tag}: decode logits not finite or pos "
+                         f"{int(cache['pos'])} != {L3_STEPS}")
+    steady = sum(ms[1:]) / (L3_STEPS - 1)
+    log(f"{tag} prefill ({b} x {s} {'frames' if kw else 'tokens'}, CUDA "
+        f"events, {smi_line()}): {pre_ms:.3f} ms; decode step ({L3_SLOTS} "
+        f"slots, {rows}-row cache): first {ms[0]:.3f} ms, then mean "
+        f"{steady:.3f} ms (min {min(ms[1:]):.3f}, max {max(ms[1:]):.3f}), "
+        f"{1e3 * L3_SLOTS / steady:.1f} tokens/s; byte bound "
+        f"{bound_ms(nbytes, 0)[0]:.3f} ms (the weights a step reads and its "
+        f"cache, {nbytes / 1e9:.3f} GB at 3.35 TB/s); peak "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    phase_profile(torch, [
+        (f"{arch} decode step, {L3_SLOTS} slots",
+         lambda: decode(model, cache, tok)),
+        (f"{arch} prefill, {b} x {s}", lambda: prefill(model, batch))])
+    toks = torch.randint(0, cfg.vocab, (1, L3_CHECK_LEN), generator=g,
+                         device=dev)
+    enc = None
+    if cfg.family == "moe":
+        moe_checks(torch, model, cfg, batch["tokens"], toks, tag)
+    if cfg.family == "whisper":
+        with torch.no_grad():
+            enc = fam.encode(model, batch["frames"][:1], cfg)
+    diff, greedy, clear = decode_vs_forward(torch, fam, model, no_drops(cfg),
+                                            toks, dev, enc)
+    room = ", capacity for every token" if cfg.family == "moe" else ""
+    log(f"{tag} decode vs {'decode' if kw else 'forward'} ({L3_CHECK_LEN} "
+        f"tokens, bfloat16{room}): max |diff| {diff:.6f} (tol "
+        f"{L1_LOGIT_TOL}{', logged' if arch in L3_F32_COPY else ''}); "
+        f"greedy tokens equal "
+        f"at the {clear} positions whose top-2 gap exceeds it: {greedy}")
+    if not greedy or not (arch in L3_F32_COPY or diff <= L1_LOGIT_TOL):
+        raise SystemExit(f"{tag}: decode_step disagrees with forward")
+    family_checks(torch, model, cfg, batch, tag)
+    log(f"{tag}: peak over the family "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if arch in L3_F32_COPY:
+        del model, cache, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_twin(torch, arch, seed, dev)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--s1-only", action="store_true",
                     help="phases 1-2 and S1 alone; no result lines")
     ap.add_argument("--serve-only", action="store_true",
-                    help="phases 1-2, L1 and L2 alone; no result lines")
+                    help="phases 1-2 and L1-L3 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -3346,6 +3774,8 @@ def main(argv=None) -> int:
         lap("L1 LM serving")
         phase_sharded_planner(torch, args.seed)
         lap("L2 sharded planner")
+        phase_families(torch, args.seed)
+        lap("L3 model families")
         return 0
     cfg = ProberConfig(**CFG_KW)
     dev = torch.device("cuda")
@@ -3468,6 +3898,8 @@ def main(argv=None) -> int:
     lap("L1 LM serving")
     phase_sharded_planner(torch, args.seed)
     lap("L2 sharded planner")
+    phase_families(torch, args.seed)
+    lap("L3 model families")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

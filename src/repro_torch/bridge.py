@@ -23,12 +23,16 @@ table (``dists`` int8, ``n`` int32, ``max_dist`` an int), and
 :func:`mlp_to_numpy` / ``mlp_from_numpy`` the learned baseline (``refs``,
 ``w1`` … ``b3`` float32, in the reference's (in, out) layout).
 
-:func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` carry a dense
-LM's weights under the reference param tree's paths, dot-joined:
-``embed.embedding``, ``embed.lm_head`` (untied), ``layers.attn.wq`` …
-``layers.mlp.wo`` and ``layers.ln1.scale`` with the leading layer axis,
-``final_norm.scale`` (float32 numpy both ways; the port stores matrices in
-``cfg.dtype``).
+:func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` carry an LM's
+weights, of any family, under the reference param tree's paths,
+dot-joined: ``embed.embedding``, ``embed.lm_head`` (untied),
+``final_norm.scale``, and the stacked blocks with their leading axis:
+``layers.attn.wq`` … ``layers.ln1.scale`` (dense, moe, rwkv6),
+``groups.rec1.mix.w_in`` (rglru, G groups) and ``tail.mix.w_in`` (its
+``n_layers % 3`` recurrent blocks), ``enc_layers.*`` / ``dec_layers.*``
+(whisper). A stacked prefix is a ``ModuleList`` of the port's model; its
+entries are split along the leading axis and joined again (float32 numpy
+both ways; the port stores each weight in its own dtype).
 """
 from __future__ import annotations
 
@@ -41,7 +45,9 @@ from repro_torch.cache.epochs import EpochState
 from repro_torch.cache.estimate_cache import EstimateCache
 from repro_torch.core import baselines, lsh, neighbors, pq as pqmod
 from repro_torch.core.estimator import ProberState
-from repro_torch.models import transformer
+from torch import nn
+
+from repro_torch.models import get_family
 from repro_torch.models.base import ModelConfig
 
 _INDEX_FIELDS = ("raw", "codes", "order", "bucket_codes", "bucket_starts",
@@ -159,26 +165,31 @@ def mlp_to_numpy(m: baselines.MLPEstimator) -> dict[str, np.ndarray]:
             for k in baselines.MLP_FIELDS}
 
 
-_LAYERS = "layers."
+def _stacks(model: nn.Module) -> dict[str, int]:
+    """The model's stacked prefixes (its ``ModuleList`` children) and
+    their lengths."""
+    return {name: len(m) for name, m in model.named_children()
+            if isinstance(m, nn.ModuleList)}
 
 
 def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
-                         device) -> transformer.Transformer:
-    """A dense :class:`~repro_torch.models.transformer.Transformer` holding
-    the reference's params ``d`` (path -> array; ``layers.*`` with the
-    leading L axis), each converted to the port's storage dtype."""
-    model = transformer.Transformer(cfg, torch.Generator(), "meta")
+                         device) -> nn.Module:
+    """The model of ``cfg``'s family holding the reference's params ``d``
+    (path -> array; a stacked prefix with its leading axis), each
+    converted to the port's storage dtype."""
+    model = get_family(cfg).init(cfg, torch.Generator(), "meta")
     want = model.state_dict()
+    stacks = _stacks(model)
     sd = {}
     for k, v in d.items():
         v = np.asarray(v)
-        if k.startswith(_LAYERS):
-            if v.shape[0] != cfg.n_layers:
-                raise ValueError(f"{k}: {v.shape[0]} layers, config has "
-                                 f"{cfg.n_layers}")
-            sub = k[len(_LAYERS):]
-            sd.update({f"{_LAYERS}{i}.{sub}": v[i]
-                       for i in range(cfg.n_layers)})
+        prefix, _, sub = k.partition(".")
+        if prefix in stacks:
+            if v.shape[0] != stacks[prefix]:
+                raise ValueError(f"{k}: {v.shape[0]} layers, the model has "
+                                 f"{stacks[prefix]} in {prefix!r}")
+            sd.update({f"{prefix}.{i}.{sub}": v[i]
+                       for i in range(stacks[prefix])})
         else:
             sd[k] = v
     if set(sd) != set(want):
@@ -194,16 +205,16 @@ def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
     return model
 
 
-def lm_params_to_numpy(model: transformer.Transformer) -> dict[str,
-                                                                np.ndarray]:
-    """The model's weights under the reference's paths, float32, layer
-    weights stacked on a leading L axis."""
+def lm_params_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's weights under the reference's paths, float32, each
+    stacked prefix's entries stacked on a leading axis."""
+    stacks = _stacks(model)
     out: dict[str, list] = {}
     for k, v in model.state_dict().items():
         a = v.detach().float().cpu().numpy()
-        if k.startswith(_LAYERS):
-            sub = k[len(_LAYERS):].split(".", 1)[1]
-            out.setdefault(_LAYERS + sub, []).append(a)
+        prefix, _, rest = k.partition(".")
+        if prefix in stacks:
+            out.setdefault(f"{prefix}.{rest.split('.', 1)[1]}", []).append(a)
         else:
             out[k] = a
     return {k: np.stack(v) if isinstance(v, list) else v

@@ -1,25 +1,23 @@
 """Model-family registry (port of ``repro/models/__init__.py``): family
 name -> module with the uniform API (init / forward / loss_fn / init_cache
-/ decode_step / prefill).
-
-Only the dense family is ported. The others (moe, rglru, rwkv6, whisper)
-raise ``NotImplementedError``: they are ROADMAP.md queue 1 item 2. No
-family falls back to the dense model.
+/ decode_step; whisper adds encode / decode / prefill_cross, dense adds
+prefill). An unknown family raises ``KeyError``.
 """
 from __future__ import annotations
 
-from repro_torch.models import transformer
+from repro_torch.models import moe, rglru, rwkv6, transformer, whisper
 from repro_torch.models.base import ModelConfig
 
-FAMILIES = {"dense": transformer}
-NOT_PORTED = ("moe", "rglru", "rwkv6", "whisper")
+FAMILIES = {
+    "dense": transformer,
+    "moe": moe,
+    "rglru": rglru,
+    "rwkv6": rwkv6,
+    "whisper": whisper,
+}
 
 
 def get_family(cfg: ModelConfig):
-    if cfg.family in FAMILIES:
-        return FAMILIES[cfg.family]
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet "
-            "(ROADMAP.md queue 1 item 2: the other families)")
-    raise KeyError(f"unknown model family {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise KeyError(f"unknown model family {cfg.family!r}")
+    return FAMILIES[cfg.family]

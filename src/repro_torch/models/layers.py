@@ -1,6 +1,7 @@
-"""Layers of the dense decoder family (port of ``repro/models/layers.py``):
-norms, RoPE, grouped-query attention (full, chunked online-softmax, cached
-decode with a bfloat16 or int8 KV cache), the SwiGLU MLP and embeddings.
+"""Layers shared by the model families (port of ``repro/models/layers.py``):
+norms, RoPE, grouped-query attention (full, chunked online-softmax,
+chunked sliding-window, cached decode with a bfloat16 or int8 KV cache),
+the SwiGLU MLP and embeddings.
 
 Conventions:
   * parameters live in small ``nn.Module``\\ s (:class:`Norm`,
@@ -19,9 +20,6 @@ Conventions:
     library call: no Pallas kernel computes attention in the reference),
     on the CPU the reference's grouped-query einsum form (:func:`_sdpa`),
     which the tests hold against the reference.
-
-``windowed_attention`` (the RG-LRU family's local attention) is not ported
-yet; it comes with that family.
 """
 from __future__ import annotations
 
@@ -166,7 +164,8 @@ def qkv_project(p: Attention, x, cfg: ModelConfig, positions, rope=None):
 
 def _sdpa(q, k, v, mask, cfg: ModelConfig):
     """q (B,Sq,H,hd), k/v (B,Sk,KV,hd), mask bool broadcastable to
-    (B,1,Sq,Sk) -> (B, Sq, H·hd).
+    (B,1,Sq,Sk), or None (every key: the reference's all-true mask)
+    -> (B, Sq, H·hd).
 
     Grouped-query form: q is reshaped to (B,Sq,KV,rep,hd) and contracted
     against the UN-repeated K/V; scores and softmax in float32 with a
@@ -178,7 +177,8 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
     qg = q.reshape(b, sq, kv, rep, cfg.hd)
     scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k).float()
     scores = scores / math.sqrt(cfg.hd)
-    scores = torch.where(mask[:, :, None], scores, -1e30)  # (B,g,r,Sq,Sk)
+    if mask is not None:
+        scores = torch.where(mask[:, :, None], scores, -1e30)  # (B,g,r,Sq,Sk)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v)
     return out.reshape(b, sq, h * cfg.hd)
@@ -188,7 +188,7 @@ def sdpa_library(q, k, v, mask, cfg: ModelConfig):
     """:func:`_sdpa` through ``torch.nn.functional.
     scaled_dot_product_attention`` (``enable_gqa``: query head h reads KV
     head h // rep, as the grouped reshape does), with the same boolean
-    mask."""
+    mask (None: no mask, which lets the flash backend run)."""
     b, sq = q.shape[:2]
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
@@ -205,15 +205,18 @@ def attend(q, k, v, mask, cfg: ModelConfig):
 
 
 def causal_attention(p: Attention, x, cfg: ModelConfig, positions=None,
-                     rope=None):
+                     rope=None, causal=True):
     """Full (quadratic) attention over x (B, S, D); ``rope`` as in
-    :func:`qkv_project`."""
+    :func:`qkv_project`; ``causal=False``: every query sees every key
+    (whisper's encoder)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k, v = qkv_project(p, x, cfg, positions, rope)
-    qpos = torch.arange(s, device=x.device)
-    mask = (qpos[:, None] >= qpos[None, :])[None, None]
+    mask = None
+    if causal:
+        qpos = torch.arange(s, device=x.device)
+        mask = (qpos[:, None] >= qpos[None, :])[None, None]
     out = attend(q, k, v, mask, cfg)
     return out @ p.wo.to(x.dtype)
 
@@ -259,6 +262,52 @@ def chunked_causal_attention(p: Attention, x, cfg: ModelConfig,
         m = m_new
     out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(x.dtype)
     return out.reshape(b, s, h * hd) @ p.wo.to(x.dtype)
+
+
+def windowed_attention(p: Attention, x, cfg: ModelConfig, positions=None,
+                       rope=None):
+    """Chunked sliding-window attention (``cfg.window`` = W), exact for
+    window <= chunk; ``rope`` as in :func:`qkv_project`.
+
+    S is padded to a multiple of W; each chunk attends to itself and the
+    previous chunk under the combined causal+window mask (chunk 0's zero
+    "previous chunk" masked out). The (B·C, W, 2W) chunks go to
+    :func:`attend` as one batch, so compute is O(S · 2W), not O(S²). For
+    S <= W it is :func:`causal_attention`.
+    """
+    w = cfg.window
+    b, s, _ = x.shape
+    if s <= w:
+        return causal_attention(p, x, cfg, positions, rope)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q, k, v = qkv_project(p, x, cfg, positions, rope)
+    pad = (-s) % w
+    nchunk = (s + pad) // w
+
+    def chunks(t):             # (B, S, heads, hd) -> (B, C, W, heads, hd)
+        return F.pad(t, (0, 0, 0, 0, 0, pad)).reshape(
+            b, nchunk, w, *t.shape[2:])
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    # keys for chunk i = chunks [i-1, i]
+    kk = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1),
+                    kc], dim=2)                        # (B, C, 2W, KV, hd)
+    vv = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1),
+                    vc], dim=2)
+    qpos = torch.arange(w, device=x.device)             # within-chunk query
+    kpos = torch.arange(2 * w, device=x.device) - w     # relative key pos
+    rel = qpos[:, None] - kpos[None, :]                 # how far back
+    mask = ((rel >= 0) & (rel < w)).expand(nchunk, w, 2 * w).clone()
+    mask[0] &= kpos[None, :] >= 0                       # chunk 0 has no prev
+    mask = mask[None, :, None].expand(b, nchunk, 1, w, 2 * w)
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    out = attend(qc.reshape(b * nchunk, w, h, hd),
+                 kk.reshape(b * nchunk, 2 * w, kv, hd),
+                 vv.reshape(b * nchunk, 2 * w, kv, hd),
+                 mask.reshape(b * nchunk, 1, w, 2 * w), cfg)
+    out = out.reshape(b, nchunk * w, h * hd)[:, :s]
+    return out @ p.wo.to(x.dtype)
 
 
 def kv_quantize(x):

@@ -1,0 +1,215 @@
+"""Whisper-medium encoder-decoder backbone, port of
+``repro/models/whisper.py``. The conv/mel frontend is a stub, as in the
+reference: the encoder takes precomputed frame embeddings (B, S_enc, D).
+
+Encoder: bidirectional pre-LN transformer with sinusoidal positions.
+Decoder: causal self-attention and cross-attention to the encoder output,
+learned positions (``dec_pos[pos % 4096]``). Parametric LayerNorm, no
+RoPE, a GELU MLP (tanh approximation, ``jax.nn.gelu``'s default).
+Cross-attention adds the query bias only; the encoder's K/V carry none.
+Attention runs by device (``layers.attend``); the encoder's and the
+cross-attention's mask-free form lets SDPA take its flash backend on the
+card. Parameters and the family API follow
+:mod:`repro_torch.models.transformer`; :func:`decode_step` writes the
+self-attention cache in place.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
+from repro_torch.models.base import ModelConfig
+
+_MAX_DEC = 4096  # learned decoder positions allocated (whisper ships 448)
+
+
+class GeluMLP(nn.Module):
+    """``wi`` (d, ff), ``wo`` (ff, d) in ``cfg.dtype``: not gated."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+        super().__init__()
+        d, ff, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+        self.wi = L._normal(generator, (d, ff), 1.0 / math.sqrt(d), dt, device)
+        self.wo = L._normal(generator, (ff, d), 1.0 / math.sqrt(ff), dt,
+                            device)
+
+
+def _mlp(p: GeluMLP, x):
+    return F.gelu(x @ p.wi.to(x.dtype), approximate="tanh") @ p.wo.to(x.dtype)
+
+
+class EncLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.attn = L.attn_init(cfg, generator, device)
+        self.mlp = GeluMLP(cfg, generator, device)
+        self.ln1 = L.norm_init(cfg, cfg.d_model, device)
+        self.ln2 = L.norm_init(cfg, cfg.d_model, device)
+
+
+class DecLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.self_attn = L.attn_init(cfg, generator, device)
+        self.cross_attn = L.attn_init(cfg, generator, device)
+        self.mlp = GeluMLP(cfg, generator, device)
+        self.ln1 = L.norm_init(cfg, cfg.d_model, device)
+        self.ln2 = L.norm_init(cfg, cfg.d_model, device)
+        self.ln3 = L.norm_init(cfg, cfg.d_model, device)
+
+
+class Whisper(nn.Module):
+    """``embed``, ``dec_pos`` (4096, d), ``enc_layers``, ``dec_layers``,
+    ``enc_norm`` and ``dec_norm``."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
+        super().__init__()
+        self.enc_layers = nn.ModuleList(EncLayer(cfg, generator, device)
+                                        for _ in range(cfg.enc_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(cfg, generator, device)
+                                        for _ in range(cfg.n_layers))
+        self.embed = L.embed_init(cfg, generator, device)
+        self.dec_pos = L._normal(generator, (_MAX_DEC, cfg.d_model), 0.01,
+                                 cfg.torch_dtype, device)
+        self.enc_norm = L.norm_init(cfg, cfg.d_model, device)
+        self.dec_norm = L.norm_init(cfg, cfg.d_model, device)
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device="cuda") -> Whisper:
+    """Random weights drawn from ``generator`` (on ``device``), at the
+    reference's scales."""
+    return Whisper(cfg, generator, ops.resolve_device(device))
+
+
+def _sinusoid(s: int, d: int, dtype, device):
+    """Sinusoidal positions (S, D), computed in float64 as the reference's
+    numpy ones are."""
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.tensor(emb, dtype=dtype, device=device)
+
+
+def encode(model: Whisper, frames, cfg: ModelConfig):
+    """frames (B, S_enc, D) stub embeddings -> encoder output (B, S_enc,
+    D)."""
+    x = frames.to(cfg.torch_dtype)
+    x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    for lp in model.enc_layers:
+        h = L.apply_norm(lp.ln1, x, cfg)
+        x = x + L.causal_attention(lp.attn, h, cfg, causal=False)
+        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg))
+    return L.apply_norm(model.enc_norm, x, cfg)
+
+
+def _cross_attention(p: L.Attention, x, enc_kv, cfg: ModelConfig):
+    """x (B, Sd, D) queries against precomputed encoder K/V (B, S_enc, KV,
+    hd); every key visible."""
+    b, s, _ = x.shape
+    q = x @ p.wq.to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    q = q.reshape(b, s, cfg.n_heads, cfg.hd)
+    k, v = enc_kv
+    return L.attend(q, k, v, None, cfg) @ p.wo.to(x.dtype)
+
+
+def _enc_kv(p: L.Attention, enc_out, cfg: ModelConfig):
+    b, se, _ = enc_out.shape
+    k = (enc_out @ p.wk.to(enc_out.dtype)).reshape(b, se, cfg.n_kv, cfg.hd)
+    v = (enc_out @ p.wv.to(enc_out.dtype)).reshape(b, se, cfg.n_kv, cfg.hd)
+    return k, v
+
+
+def decode(model: Whisper, tokens, enc_out, cfg: ModelConfig):
+    """Teacher-forced decoder -> logits (B, S_dec, V) float32."""
+    x = L.embed(model.embed, tokens, cfg)
+    x = x + model.dec_pos[:tokens.shape[1]][None].to(x.dtype)
+    no_rope = cfg.replace(rope_theta=0.0)
+    for lp in model.dec_layers:
+        h = L.apply_norm(lp.ln1, x, cfg)
+        x = x + L.causal_attention(lp.self_attn, h, no_rope)
+        h = L.apply_norm(lp.ln2, x, cfg)
+        x = x + _cross_attention(lp.cross_attn, h,
+                                 _enc_kv(lp.cross_attn, enc_out, cfg), cfg)
+        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))
+    x = L.apply_norm(model.dec_norm, x, cfg)
+    return L.unembed(model.embed, x, cfg)
+
+
+def forward(model: Whisper, batch, cfg: ModelConfig):
+    """batch ``frames`` (B, S_enc, D) and ``tokens`` (B, S_dec) -> logits
+    (B, S_dec, V) float32."""
+    return decode(model, batch["tokens"], encode(model, batch["frames"], cfg),
+                  cfg)
+
+
+def loss_fn(model: Whisper, batch, cfg: ModelConfig):
+    logits = forward(model, batch, cfg)
+    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+
+# ------------------------------------------------------------- serving -----
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, enc_len: int = 0,
+               device="cuda") -> dict:
+    """Self-attention K/V (L, B, max_len, KV, hd) and cross-attention K/V
+    ``xk`` / ``xv`` (L, B, enc_len or max_len, KV, hd) in ``dtype``;
+    ``pos`` a scalar."""
+    dev = ops.resolve_device(device)
+    l, kv, hd = cfg.n_layers, cfg.n_kv, cfg.hd
+    enc_len = enc_len or max_len
+
+    def zeros(n):
+        return torch.zeros((l, batch, n, kv, hd), dtype=dtype, device=dev)
+
+    return {"k": zeros(max_len), "v": zeros(max_len), "xk": zeros(enc_len),
+            "xv": zeros(enc_len),
+            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def prefill_cross(model: Whisper, enc_out, cache: dict, cfg: ModelConfig):
+    """The cache with ``xk`` / ``xv`` (L, B, S_enc, KV, hd), in the cache's
+    dtype, from the encoder output (B, S_enc, D): every decoder layer's
+    cross-attention K/V. S_enc sets their length, as in the reference."""
+    kvs = [_enc_kv(lp.cross_attn, enc_out, cfg) for lp in model.dec_layers]
+    return {**cache,
+            "xk": torch.stack([k for k, _ in kvs]).to(cache["xk"].dtype),
+            "xv": torch.stack([v for _, v in kvs]).to(cache["xv"].dtype)}
+
+
+@torch.no_grad()
+def decode_step(model: Whisper, cache: dict, tokens, cfg: ModelConfig):
+    """One token for every sequence against the self-attention cache
+    (written in place) and the cross-attention K/V. ``pos`` a scalar or
+    per slot. Returns (logits (B, V) float32, the cache with
+    ``pos + 1``)."""
+    x = L.embed(model.embed, tokens[:, None], cfg)        # (B, 1, D)
+    pos = cache["pos"]
+    x = x + model.dec_pos[(pos % _MAX_DEC).long()].reshape(
+        -1, 1, cfg.d_model).to(x.dtype)
+    no_rope = cfg.replace(rope_theta=0.0)
+    slots = L.decode_slots(x, cache["k"].shape[2], pos, no_rope)
+    for i, lp in enumerate(model.dec_layers):
+        h = L.apply_norm(lp.ln1, x, cfg)
+        x = x + L.cached_decode_attention(lp.self_attn, h, cache["k"][i],
+                                          cache["v"][i], pos, no_rope,
+                                          slots)[0]
+        h = L.apply_norm(lp.ln2, x, cfg)
+        x = x + _cross_attention(lp.cross_attn, h,
+                                 (cache["xk"][i].to(x.dtype),
+                                  cache["xv"][i].to(x.dtype)), cfg)
+        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))
+    x = L.apply_norm(model.dec_norm, x, cfg)
+    logits = L.unembed(model.embed, x, cfg)[:, 0]
+    return logits, {**cache, "pos": pos + 1}

@@ -88,13 +88,20 @@ def test_qwen2_7b_full_width_parameter_count():
 
 
 def test_get_family_registers_dense_only():
-    assert get_family(configs.get_smoke_config("qwen2-7b")) is T
-    for arch in ("qwen3-moe-30b-a3b", "recurrentgemma-9b", "rwkv6-1.6b",
-                 "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            get_family(configs.get_smoke_config(arch))
-        with pytest.raises(NotImplementedError):
-            step.make_decode_step(configs.get_smoke_config(arch))
+    """Every arch's family resolves to its module (the name is older than
+    the other families' port); an unknown family raises ``KeyError``."""
+    from repro_torch.models import moe, rglru, rwkv6, whisper
+    want = {"dense": T, "moe": moe, "rglru": rglru, "rwkv6": rwkv6,
+            "whisper": whisper}
+    for arch in configs.ARCHS:
+        cfg = configs.get_smoke_config(arch)
+        assert get_family(cfg) is want[cfg.family]
+        step.make_decode_step(cfg)
+    assert {configs.get_smoke_config(a).family for a in configs.ARCHS} == \
+        set(want)
+    with pytest.raises(KeyError, match="unknown model family"):
+        get_family(configs.get_smoke_config("qwen2-7b").replace(
+            family="mamba"))
 
 
 # --------------------------------------------------------------- layers ----
