@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--seed S] [--s1-only | --serve-only]
+    python3 chip_smoke.py [--seed S] [--s1-only | --serve-only |
+                           --train-only]
 
 ``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
 draws, without the main path's q-errors) and prints no result lines;
-``--serve-only`` runs phases 1-2 and L1-L3 alone and prints none either.
+``--serve-only`` runs phases 1-2 and L1-L3 alone and prints none either;
+``--train-only`` runs phases 1-2 and T1 alone, no result lines.
 
 Phases, in order; each raises on failure:
 
@@ -236,6 +238,45 @@ L3. ``rwkv6-1.6b``, ``recurrentgemma-9b``, ``whisper-medium`` and
     batch and over the check's sequence, and the gate ties at the k-th
     expert.
 
+Last, training, through the entry points a user calls (no kernel of its
+own: the reference's training path has no ``pallas_call``):
+
+T1. a. ``launch.train.build_trainer`` for ``qwen2.5-3b`` at its published
+    config (full width and depth: 36 layers, d 2048, GQA 16/2, d_ff
+    11008, vocab 151,936), random float32 master weights from the seed,
+    bfloat16 compute, per-layer recompute, ``make_train_step(...,
+    n_microbatches=2)`` on ``TokenPipeline`` batches of 4 x 512 tokens
+    (``T1_BATCH``, ``T1_SEQ``, ``T1_MICRO``) with the phase's AdamW
+    (``T1_OPT``): 2 warm-up and 8 timed steps. Logs parameters, GiB,
+    init seconds, each step's loss and grad norm, a step's CUDA-event ms
+    split into forward+backward and clip+AdamW (an event recorded as
+    ``adamw.update`` starts), tokens/s, the model-FLOP share (6·N·D over
+    the step time and the 989 TFLOP/s bf16 peak; recompute's extra 2·N·D
+    beside it), AdamW beside its byte bound (28 B a parameter at 3.35
+    TB/s), peak memory, then a profile of one step (launch calls, busy
+    share; ``phase_profile`` runs one unprofiled first: 12 steps in
+    all). Fatal: every loss and grad norm finite; the loss of step 1's
+    batch lower after step 1.
+    b. The same config cut to 2 layers (``T1_CPU_LAYERS``) in float32 (TF32
+    off), the same bridged weights on the card and on the CPU, one step of
+    2 microbatches on 2 x 64 tokens. Fatal: loss within ``T1_LOSS_TOL``,
+    grad norm within ``T1_RTOL``, m and v within ``T1_STATE_TOL`` of each
+    leaf's largest element, params within ``T1_RTOL`` + ``T1_STEP_ATOL``·lr
+    where |m| ≥ ``T1_COND`` of its leaf's largest and within one step's
+    reach elsewhere (the comment at the constants says why).
+    c. The first layer's q, k, v of a microbatch at full width in bfloat16
+    (the causal boolean mask ``causal_attention`` passes): the SDPA
+    route's dq, dk, dv against plain ``_sdpa``'s, fatal beyond
+    ``T1_SDPA_GRAD_TOL`` of the largest; times, and the attention
+    operators and kernels SDPA ran.
+    d. ``launch.train.main`` at smoke scale on the card (24 steps, a
+    checkpoint every 4; fatal unless it improves the loss), then the loop
+    it builds (``build_loop``) twice, uninterrupted and with
+    ``WorkerFailure`` injected at steps 7 and 13 (``T1_FT_FAIL``). Fatal:
+    2 restarts, final loss and params within ``T1_FT_TOL``; logs whether
+    they are bit-equal. The full-width state's checkpoints (~41 GB of npz)
+    are not written here.
+
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
 non-zero, printing no result, without CUDA or without the
@@ -246,6 +287,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3741,6 +3783,323 @@ def family_run(torch, arch, b, s, rows, seed, dev):
         f32_twin(torch, arch, seed, dev)
 
 
+# ------------------------------------------------------ T1: training ----
+
+T1_ARCH = "qwen2.5-3b"
+T1_BATCH, T1_SEQ, T1_MICRO = 4, 512, 2      # 2,048 tokens, 2 microbatches
+T1_WARMUP, T1_STEPS = 2, 8
+# the phase's AdamW (set before the first run): step 1 at lr 1e-4
+T1_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=T1_WARMUP + T1_STEPS)
+BF16_FLOP_S = 989e12            # H100 SXM dense bf16 tensor, data sheet
+ADAMW_BYTES = 28                # a parameter: read p, g, m, v; write p, m, v
+# T1b, card against CPU in float32 on 2 layers at full width, one step:
+# loss absolute; grad norm relative; m and v (linear in the gradient) within
+# T1_STATE_TOL of each leaf's largest element; params within T1_RTOL of |p|
+# plus T1_STEP_ATOL·lr where |m| is at least T1_COND of its leaf's largest,
+# and within one step's reach, (2 + wd·|p|)·lr, elsewhere: on step 1 the
+# update is m̂/(√v̂+ε) = g/(|g|+ε), which the two devices' summation
+# orders move freely where g is a cancellation residue near ε (0.16·lr in
+# the attention weights, whose gradients at a random init are mostly such
+# residues), and hardly at all where |g| is well above its noise
+T1_CPU_LAYERS, T1_CPU_BATCH, T1_CPU_SEQ = 2, 2, 64
+T1_LOSS_TOL, T1_RTOL, T1_STEP_ATOL, T1_STATE_TOL = 1e-4, 1e-4, 0.05, 1e-3
+T1_COND = 1e-3
+# T1c: the SDPA route's q/k/v gradients against plain _sdpa's, bfloat16,
+# relative to the largest plain gradient
+T1_SDPA_GRAD_TOL = 0.0625
+# T1d: the driver's loop with failures against the uninterrupted one
+T1_FT_ARGS = ["--arch", T1_ARCH, "--scale", "smoke", "--steps", "24",
+              "--save-every", "4"]
+T1_FT_FAIL = (7, 13)
+T1_FT_TOL = 1e-3
+
+
+def phase_training(torch, seed, dev="cuda"):
+    """T1 (the module docstring): a, the full-width trainer; b, card
+    against CPU; c, the attention backward; d, the driver and its
+    restarts."""
+    import gc
+    dev = torch.device(dev)
+    model, batch = t1_trainer(torch, seed, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1_cpu_agreement(torch, seed, dev)
+    t1_attention_backward(torch, model, batch, seed)
+    del model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1_driver(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def t1_trainer(torch, seed, dev):
+    """T1a: ``build_trainer`` at qwen2.5-3b's published config, 2 warm-up
+    and 8 timed steps of ``make_train_step``; returns the model (its AdamW
+    state freed) and the last batch."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_loss_fn
+    cfg = configs.get_config(T1_ARCH)
+    tag = f"T1 {T1_ARCH}"
+    opt_cfg = adamw.AdamWConfig(**T1_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, step = train.build_trainer(cfg, opt_cfg,
+                                           microbatches=T1_MICRO, seed=seed,
+                                           device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in model.parameters())
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise SystemExit(f"{tag}: master weights not float32")
+    log(f"{tag} ({smi_line()}): published config (d_model {cfg.d_model}, "
+        f"{cfg.n_layers} layers, {cfg.n_heads} heads / {cfg.n_kv} KV x "
+        f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, untied), {n:,} "
+        f"parameters (cfg.param_count() {cfg.param_count():,}); float32 "
+        f"master weights {4 * n / 2 ** 30:.3f} GiB, with m and v "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated; "
+        f"init {init_s:.3f} s; compute {cfg.dtype}; AdamW {T1_OPT}")
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=T1_BATCH, seq=T1_SEQ,
+                         seed=seed, device=dev)
+    real_update = adamw.update
+    mids = []
+
+    def marked_update(*a, **k):
+        """adamw.update with a CUDA event before it: the split."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        mids.append(ev)
+        return real_update(*a, **k)
+
+    rows = []
+    for i in range(T1_WARMUP + T1_STEPS):
+        batch = pipe.next()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        adamw.update = marked_update
+        try:
+            _, opt, m = step(model, opt, batch)
+        finally:
+            adamw.update = real_update
+        end.record()
+        loss, gn, lr = float(m["loss"]), float(m["grad_norm"]), float(m["lr"])
+        rows.append((start, mids[-1], end, loss, gn, lr))
+        if not (math.isfinite(loss) and math.isfinite(gn)):
+            raise SystemExit(f"{tag}: step {i + 1} loss {loss} grad norm "
+                             f"{gn} not finite")
+        if i == 0:
+            with torch.no_grad():
+                after = float(make_loss_fn(cfg)(model, batch))
+            log(f"{tag}: step 1 loss {loss:.6f} (grad norm {gn:.4f}, lr "
+                f"{lr:.3e}); the same batch after the step {after:.6f}")
+            if not after < loss:
+                raise SystemExit(f"{tag}: one step did not lower the loss on "
+                                 "its batch")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    timed = rows[T1_WARMUP:]
+    tot = [s.elapsed_time(e) for s, _, e, *_ in timed]
+    fb = [s.elapsed_time(mid) for s, mid, _, *_ in timed]
+    upd = [mid.elapsed_time(e) for _, mid, e, *_ in timed]
+    mean = sum(tot) / len(tot)
+    tokens = T1_BATCH * T1_SEQ
+    flops = 6 * n * tokens
+    bound = bound_ms(ADAMW_BYTES * n, 0)[0]
+    log(f"{tag} losses: " + ", ".join(f"{r[3]:.4f}" for r in rows)
+        + "; grad norms: " + ", ".join(f"{r[4]:.3f}" for r in rows))
+    log(f"{tag} step ({T1_BATCH} x {T1_SEQ} tokens in {T1_MICRO} "
+        f"microbatches, CUDA events over {T1_STEPS} steps after "
+        f"{T1_WARMUP}, {smi_line()}): {mean:.3f} ms (min {min(tot):.3f}, "
+        f"max {max(tot):.3f}); forward+backward {sum(fb) / len(fb):.3f} ms, "
+        f"clip+AdamW {sum(upd) / len(upd):.3f} ms (min {min(upd):.3f}); "
+        f"{1e3 * tokens / mean:.1f} tokens/s; model-FLOP share "
+        f"{flops / (mean * 1e-3) / BF16_FLOP_S:.4f} (6·N·D = {flops:.4e} "
+        f"FLOP a step against {BF16_FLOP_S:.3e} FLOP/s bf16; recompute "
+        f"adds 2·N·D = {2 * n * tokens:.4e}, 8·N·D share "
+        f"{8 * n * tokens / (mean * 1e-3) / BF16_FLOP_S:.4f}); AdamW "
+        f"{sum(upd) / len(upd):.3f} ms against its byte bound {bound:.3f} "
+        f"ms ({ADAMW_BYTES} B a parameter at 3.35 TB/s); peak "
+        f"{peak / 2 ** 30:.3f} GiB")
+    phase_profile(torch, [(f"{T1_ARCH} train step, {tokens} tokens",
+                           lambda: step(model, opt, batch))])
+    del opt
+    return model, batch
+
+
+def t1_cpu_agreement(torch, seed, dev):
+    """T1b: one ``make_train_step`` (2 microbatches) of the same bridged
+    float32 weights, 2 layers at full width, on the card and on the CPU."""
+    from repro_torch import bridge, configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import get_family
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    import numpy as np
+    tag = f"T1 {T1_ARCH} card vs CPU"
+    cfg = configs.get_config(T1_ARCH).replace(n_layers=T1_CPU_LAYERS,
+                                              dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    d = bridge.lm_params_to_numpy(get_family(cfg).init(
+        cfg, g, dev, param_dtype=torch.float32))
+    opt_cfg = adamw.AdamWConfig(**T1_OPT)
+    batch = TokenPipeline(vocab=cfg.vocab, batch=T1_CPU_BATCH,
+                          seq=T1_CPU_SEQ, seed=seed, device="cpu").next()
+    out = {}
+    for name, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        model = bridge.lm_params_from_numpy(d, cfg, where, torch.float32)
+        opt = adamw.init(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt_cfg, n_microbatches=T1_MICRO)
+        _, opt, m = step(model, opt, {k: v.to(where) for k, v in
+                                      batch.items()})
+        out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                     bridge.lm_params_to_numpy(model),
+                     bridge.adamw_state_to_numpy(opt, model))
+        log(f"{tag}: {name} step {time.perf_counter() - t0:.2f} s (bridge "
+            f"included)")
+        del model, opt
+    (lg, gg, pg, sg), (lc, gc_, pc, sc) = out["card"], out["cpu"]
+    lr = opt_cfg.lr
+    bad_p, dp, n_ill, dp_ill = [], 0.0, 0, 0.0
+    for k in pc:
+        m = np.abs(sc[f"m.{k}"])
+        well = m >= T1_COND * m.max()
+        diff = np.abs(pg[k] - pc[k])
+        reach = (2 + opt_cfg.weight_decay * np.abs(d[k])) * lr
+        if (diff[well] > T1_RTOL * np.abs(pc[k][well])
+                + T1_STEP_ATOL * lr).any() or (diff > reach).any():
+            bad_p.append(k)
+        dp = max(dp, float(diff[well].max(initial=0.0)))
+        dp_ill = max(dp_ill, float(diff[~well].max(initial=0.0)))
+        n_ill += int((~well).sum())
+    ds = {part: max(float(np.abs(sg[k] - sc[k]).max()
+                          / max(np.abs(sc[k]).max(), 1e-30))
+                    for k in sc if k.startswith(part + "."))
+          for part in ("m", "v")}
+    log(f"{tag} ({cfg.n_layers} layers, float32, TF32 off, "
+        f"{T1_CPU_BATCH} x {T1_CPU_SEQ} tokens, {T1_MICRO} microbatches): "
+        f"loss {lg:.6f} vs {lc:.6f} (|diff| {abs(lg - lc):.3e}, tol "
+        f"{T1_LOSS_TOL}); grad norm {gg:.6f} vs {gc_:.6f} (rel "
+        f"{abs(gg - gc_) / gc_:.3e}, tol {T1_RTOL}); params max |diff| "
+        f"{dp:.3e} where |m| >= {T1_COND} of its leaf's max (tol "
+        f"{T1_STEP_ATOL} x lr + {T1_RTOL} rel), {dp_ill:.3e} = "
+        f"{dp_ill / lr:.3f} x lr at the {n_ill:,} others (tol one step's "
+        f"reach, (2 + wd|p|) x lr); m, v max "
+        f"|diff| / leaf max {ds['m']:.3e}, {ds['v']:.3e} (tol "
+        f"{T1_STATE_TOL}); step {int(sg['step'])} = {int(sc['step'])}")
+    if not (abs(lg - lc) <= T1_LOSS_TOL and abs(gg - gc_) <= T1_RTOL * gc_
+            and not bad_p and max(ds.values()) <= T1_STATE_TOL
+            and int(sg["step"]) == int(sc["step"]) == 1):
+        raise SystemExit(f"{tag}: the card's train step disagrees with the "
+                         f"CPU's (params out of tolerance: {bad_p[:4]})")
+
+
+def t1_attention_backward(torch, model, batch, seed):
+    """T1c: the first layer's q, k, v of a microbatch at full width in
+    bfloat16; the SDPA route's gradients against plain ``_sdpa``'s."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L, transformer as T
+    cfg = configs.get_config(T1_ARCH)
+    tag = f"T1 {T1_ARCH} attention backward"
+    blk = model.layers[0]
+    toks = batch["tokens"][:T1_BATCH // T1_MICRO]
+    with torch.no_grad():
+        x = L.embed(model.embed, toks, cfg)
+        q, k, v = L.qkv_project(blk.attn, L.apply_norm(blk.ln1, x, cfg), cfg,
+                                None, T._rope(x, cfg))
+    s = toks.shape[1]
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[:, None] >= pos[None, :])[None, None]
+    g = torch.Generator(device=q.device).manual_seed(seed + 2)
+    dout = torch.randn((q.shape[0], s, cfg.n_heads * cfg.hd), generator=g,
+                       device=q.device).to(q.dtype)
+
+    def grads(route):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        route(*leaves, mask, cfg).backward(dout)
+        return [t.grad for t in leaves]
+
+    lib, plain = grads(L.sdpa_library), grads(L._sdpa)
+    rel = max(float((a.float() - b.float()).abs().max())
+              / float(b.float().abs().max()) for a, b in zip(lib, plain))
+    ms_l = cuda_ms(torch, lambda: grads(L.sdpa_library), iters=5)
+    ms_p = cuda_ms(torch, lambda: grads(L._sdpa), iters=5)
+    kernels = sdpa_kernels(torch, lambda: grads(L.sdpa_library))
+    ops_ = sdpa_ops(torch, lambda: grads(L.sdpa_library))
+    log(f"{tag} ({tuple(q.shape)} q, {tuple(k.shape)} k/v, causal boolean "
+        f"mask as causal_attention passes it): dq/dk/dv max |diff| / max "
+        f"|plain| {rel:.5f} (tol {T1_SDPA_GRAD_TOL}); forward+backward "
+        f"SDPA {ms_l:.4f} ms, plain {ms_p:.4f} ms; SDPA operators "
+        f"(forward and backward): {ops_}; device kernels: {kernels}")
+    if not rel <= T1_SDPA_GRAD_TOL:
+        raise SystemExit(f"{tag}: SDPA's gradients disagree with plain "
+                         "_sdpa's")
+
+
+def sdpa_ops(torch, fn) -> str:
+    """The attention operators one call of ``fn`` ran (profiler rows whose
+    name holds "attention": the backend SDPA picked, forward and
+    backward)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if "attention" in e.key.lower()})
+    return ", ".join(names) or "none seen by the profiler"
+
+
+def t1_driver(torch, dev):
+    """T1d: ``launch.train.main`` at smoke scale on the card, then the loop
+    it builds run uninterrupted and with failures at ``T1_FT_FAIL``."""
+    import tempfile
+    from repro_torch.launch import train
+    tag = f"T1 {T1_ARCH} driver"
+    with tempfile.TemporaryDirectory() as tmp:
+        dev_args = ["--device", dev.type]
+        t0 = time.perf_counter()
+        out = train.main(T1_FT_ARGS + dev_args + ["--ckpt-dir", f"{tmp}/m"])
+        log(f"{tag}: main, {len(out)} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        if not out[-1]["loss"] < out[0]["loss"]:
+            raise SystemExit(f"{tag}: the driver did not improve the loss")
+        runs = {}
+        for name, fail in (("uninterrupted", ()), ("failures", T1_FT_FAIL)):
+            loop, state, _ = train.build_loop(train.parse_args(
+                T1_FT_ARGS + dev_args + ["--ckpt-dir", f"{tmp}/{name}"]))
+            fired = set()
+
+            def inject(step, fail=fail, fired=fired):
+                if step in fail and step not in fired:
+                    fired.add(step)
+                    return True
+                return False
+
+            _, flog = loop.run(state, len(out), inject=inject)
+            runs[name] = (loop.restarts, flog, state["params"])
+    (_, la, pa), (restarts, lb, pb) = runs["uninterrupted"], runs["failures"]
+    dl = abs(la[-1]["loss"] - lb[-1]["loss"])
+    with torch.no_grad():
+        dp = max(float((pa[k] - pb[k]).abs().max()) for k in pa)
+        same = dl == 0 and all(torch.equal(pa[k], pb[k]) for k in pa)
+    log(f"{tag}: failures at steps {T1_FT_FAIL}: {restarts} restarts, "
+        f"{len(lb)} steps run for {len(la)}; final loss {la[-1]['loss']:.6f} "
+        f"vs {lb[-1]['loss']:.6f} (|diff| {dl:.3e}), params max |diff| "
+        f"{dp:.3e} (tol {T1_FT_TOL}); bit-equal: {same}")
+    if restarts != len(T1_FT_FAIL) or not (dl <= T1_FT_TOL
+                                           and dp <= T1_FT_TOL):
+        raise SystemExit(f"{tag}: the restarted run does not reproduce the "
+                         "uninterrupted one")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3748,6 +4107,8 @@ def main(argv=None) -> int:
                     help="phases 1-2 and S1 alone; no result lines")
     ap.add_argument("--serve-only", action="store_true",
                     help="phases 1-2 and L1-L3 alone; no result lines")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1-2 and T1 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -3769,6 +4130,10 @@ def main(argv=None) -> int:
     from repro_torch.data import vectors
     phase_build()
     lap("device and build")
+    if args.train_only:
+        phase_training(torch, args.seed)
+        lap("T1 training")
+        return 0
     if args.serve_only:
         phase_lm_serving(torch, args.seed)
         lap("L1 LM serving")
@@ -3900,6 +4265,8 @@ def main(argv=None) -> int:
     lap("L2 sharded planner")
     phase_families(torch, args.seed)
     lap("L3 model families")
+    phase_training(torch, args.seed)
+    lap("T1 training")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

@@ -32,7 +32,10 @@ dot-joined: ``embed.embedding``, ``embed.lm_head`` (untied),
 ``n_layers % 3`` recurrent blocks), ``enc_layers.*`` / ``dec_layers.*``
 (whisper). A stacked prefix is a ``ModuleList`` of the port's model; its
 entries are split along the leading axis and joined again (float32 numpy
-both ways; the port stores each weight in its own dtype).
+both ways; the port stores each weight in its own dtype, or the matrices
+in ``param_dtype``). :func:`adamw_state_from_numpy` /
+:func:`adamw_state_to_numpy` carry an AdamW state the same way: ``m.`` and
+``v.`` before each param path, and ``step``.
 """
 from __future__ import annotations
 
@@ -172,13 +175,12 @@ def _stacks(model: nn.Module) -> dict[str, int]:
             if isinstance(m, nn.ModuleList)}
 
 
-def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
-                         device) -> nn.Module:
-    """The model of ``cfg``'s family holding the reference's params ``d``
-    (path -> array; a stacked prefix with its leading axis), each
-    converted to the port's storage dtype."""
-    model = get_family(cfg).init(cfg, torch.Generator(), "meta")
-    want = model.state_dict()
+def _unstack(d: dict[str, np.ndarray], model: nn.Module
+             ) -> dict[str, np.ndarray]:
+    """Reference paths -> the model's parameter names (a stacked prefix
+    split along its leading axis), checked against the model's names and
+    shapes."""
+    want = dict(model.named_parameters())
     stacks = _stacks(model)
     sd = {}
     for k, v in d.items():
@@ -193,24 +195,23 @@ def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
         else:
             sd[k] = v
     if set(sd) != set(want):
-        raise KeyError(f"params do not fit {cfg.name}: missing "
+        raise KeyError(f"params do not fit the model: missing "
                        f"{sorted(set(want) - set(sd))}, unexpected "
                        f"{sorted(set(sd) - set(want))}")
     for k, v in sd.items():
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: shape {v.shape}, expected "
                              f"{tuple(want[k].shape)}")
-        sd[k] = torch.tensor(v, dtype=want[k].dtype, device=device)
-    model.load_state_dict(sd, assign=True)
-    return model
+    return sd
 
 
-def lm_params_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
-    """The model's weights under the reference's paths, float32, each
-    stacked prefix's entries stacked on a leading axis."""
+def stack_named(named, model: nn.Module) -> dict[str, np.ndarray]:
+    """(parameter name, tensor) pairs in the model's order -> reference
+    paths, float32, each stacked prefix's entries stacked on a leading
+    axis."""
     stacks = _stacks(model)
     out: dict[str, list] = {}
-    for k, v in model.state_dict().items():
+    for k, v in named:
         a = v.detach().float().cpu().numpy()
         prefix, _, rest = k.partition(".")
         if prefix in stacks:
@@ -219,3 +220,61 @@ def lm_params_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
             out[k] = a
     return {k: np.stack(v) if isinstance(v, list) else v
             for k, v in out.items()}
+
+
+def _meta_model(cfg: ModelConfig, param_dtype=None) -> nn.Module:
+    return get_family(cfg).init(cfg, torch.Generator(), "meta", param_dtype)
+
+
+def lm_params_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
+                         device, param_dtype: torch.dtype | None = None
+                         ) -> nn.Module:
+    """The model of ``cfg``'s family holding the reference's params ``d``
+    (path -> array; a stacked prefix with its leading axis), each
+    converted to the port's storage dtype (``param_dtype`` for the
+    matrices when given: ``torch.float32`` holds them as the reference
+    and the trainer do)."""
+    model = _meta_model(cfg, param_dtype)
+    want = model.state_dict()
+    sd = {k: torch.tensor(v, dtype=want[k].dtype, device=device)
+          for k, v in _unstack(d, model).items()}
+    model.load_state_dict(sd, assign=True)
+    return model
+
+
+def lm_params_to_numpy(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's weights under the reference's paths, float32, each
+    stacked prefix's entries stacked on a leading axis."""
+    return stack_named(model.named_parameters(), model)
+
+
+def adamw_state_from_numpy(d: dict[str, np.ndarray], cfg: ModelConfig,
+                           device) -> dict:
+    """A reference AdamW state (``m.<path>`` and ``v.<path>`` under the
+    param paths, ``step``) as the port's ``optim.adamw`` state of a model
+    of ``cfg``: float32 ``m`` / ``v`` keyed by the model's parameter names,
+    an int32 ``step``."""
+    model = _meta_model(cfg)
+    state = {}
+    for part in ("m", "v"):
+        sub = {k[len(part) + 1:]: v for k, v in d.items()
+               if k.startswith(part + ".")}
+        state[part] = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                       for k, v in _unstack(sub, model).items()}
+    state["step"] = torch.tensor(np.asarray(d["step"]), dtype=torch.int32,
+                                 device=device)
+    return state
+
+
+def adamw_state_to_numpy(state: dict, model: nn.Module
+                         ) -> dict[str, np.ndarray]:
+    """The port's AdamW state of ``model`` under the reference's paths:
+    ``m.<path>``, ``v.<path>`` (stacked as the params) and ``step``
+    (int32)."""
+    out = {}
+    for part in ("m", "v"):
+        named = ((k, state[part][k]) for k, _ in model.named_parameters())
+        out.update({f"{part}.{k}": v
+                    for k, v in stack_named(named, model).items()})
+    out["step"] = state["step"].cpu().numpy().astype(np.int32)
+    return out

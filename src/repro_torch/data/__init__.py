@@ -1,1 +1,2 @@
-"""Surrogate corpora and the paper's query protocol, made on the device."""
+"""Surrogate corpora and the paper's query protocol, made on the device;
+the LM token pipeline."""

@@ -1,1 +1,2 @@
-"""Launchers of the port: ``serve`` (model + engine + semantic planner)."""
+"""Launchers of the port: ``serve`` (model + engine + semantic planner) and
+``train`` (the fault-tolerant training driver)."""

@@ -11,9 +11,11 @@ Conventions:
     reference's do on its param dicts.
   * matrices are stored in ``cfg.dtype``: the reference keeps them in
     float32 and casts each at use (``x @ w.astype(x.dtype)``), which gives
-    the same values. Norm scales and biases stay float32 and are used as
-    the reference uses them (scales in float32 arithmetic, biases cast to
-    the activations' dtype).
+    the same values. A family's ``init(..., param_dtype=torch.float32)``
+    (:func:`param_cfg`) stores them in float32 as the reference does: the
+    trainer's master weights. Norm scales and biases stay float32 and are
+    used as the reference uses them (scales in float32 arithmetic, biases
+    cast to the activations' dtype).
   * compute dtype is ``cfg.dtype``; norms, softmax and logits are float32.
   * attention (:func:`attend`) runs by the tensors' device: on the card
     PyTorch's ``scaled_dot_product_attention`` (:func:`sdpa_library`, a
@@ -29,8 +31,30 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.base import ModelConfig
+
+
+def param_cfg(cfg: ModelConfig, param_dtype: Optional[torch.dtype]
+              ) -> ModelConfig:
+    """The config a family's modules are built from: ``cfg`` with
+    ``param_dtype`` (e.g. ``torch.float32``, how the reference holds every
+    parameter) as the matrices' storage dtype; ``cfg`` itself when None.
+    Only storage changes: every use casts to the compute dtype."""
+    if param_dtype is None:
+        return cfg
+    return cfg.replace(dtype=str(param_dtype).removeprefix("torch."))
+
+
+def remat(fn, *args):
+    """``jax.checkpoint``'s counterpart: ``fn(*args)`` keeping only its
+    inputs for the backward pass, which recomputes the rest, while grad is
+    enabled; a plain call under ``torch.no_grad()`` (the serve steps)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 def _normal(generator: torch.Generator, shape, scale: float, dtype,
             device) -> nn.Parameter:

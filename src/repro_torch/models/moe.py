@@ -14,8 +14,9 @@ through the residual: GShard semantics. ``forward`` groups by sequence;
 reference does; the two differ exactly when tokens are dropped.
 
 The reference's sharding hints (``constrain``, ``constrain_expert``) do
-nothing without a mesh and its ``jax.checkpoint`` matters only for
-training; neither has a counterpart here. Parameters and the family API
+nothing without a mesh and have no counterpart here; its ``jax.checkpoint``
+of each layer is ``layers.remat`` (the recomputed routing is the first
+pass's: the stable sort is deterministic). Parameters and the family API
 follow :mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
@@ -140,12 +141,14 @@ class MoETransformer(nn.Module):
         self.final_norm = L.norm_init(cfg, cfg.d_model, device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cuda") -> MoETransformer:
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         param_dtype: torch.dtype | None = None) -> MoETransformer:
     """Random weights drawn from ``generator`` (on ``device``): matrices
-    N(0, 1/fan_in) (the experts' ``wo`` 1/d_ff) in ``cfg.dtype``, norm
-    scales 1 in float32, as the reference initialises them."""
-    return MoETransformer(cfg, generator, ops.resolve_device(device))
+    N(0, 1/fan_in) (the experts' ``wo`` 1/d_ff) in ``cfg.dtype`` (or
+    ``param_dtype``), norm scales 1 in float32, as the reference
+    initialises them."""
+    return MoETransformer(L.param_cfg(cfg, param_dtype), generator,
+                          ops.resolve_device(device))
 
 
 def _layer_fwd(p: Block, x, cfg: ModelConfig, rope=None):
@@ -158,7 +161,7 @@ def forward(model: MoETransformer, batch, cfg: ModelConfig):
     x = L.embed(model.embed, batch["tokens"], cfg)
     rope = T._rope(x, cfg)
     for blk in model.layers:
-        x = _layer_fwd(blk, x, cfg, rope)
+        x = L.remat(_layer_fwd, blk, x, cfg, rope)
     x = L.apply_norm(model.final_norm, x, cfg)
     return L.unembed(model.embed, x, cfg)
 

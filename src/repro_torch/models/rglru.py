@@ -14,8 +14,9 @@ of ``n_layers % 3`` recurrent blocks, each an ``nn.ModuleList`` (the
 reference stacks them on a leading axis). Weights the reference uses in
 float32 (the LRU gates ``w_a`` / ``w_x``, their biases, ``lru_lambda``;
 the conv taps, float32 in decode) are stored in float32, the projections
-in ``cfg.dtype``. The family API follows
-:mod:`repro_torch.models.transformer`.
+in ``cfg.dtype``. Each group and each tail block runs under
+``layers.remat`` (the reference's ``jax.checkpoint``). The family API
+follows :mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
 
@@ -167,18 +168,13 @@ class Griffin(nn.Module):
         self.final_norm = L.norm_init(cfg, cfg.d_model, device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cuda") -> Griffin:
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         param_dtype: torch.dtype | None = None) -> Griffin:
     """Random weights drawn from ``generator`` (on ``device``), at the
-    reference's scales (``lru_lambda`` uniform in [0.1, 0.9))."""
-    return Griffin(cfg, generator, ops.resolve_device(device))
-
-
-def _blocks(model: Griffin):
-    """Every block in order: (rec1, rec2, attn) a group, then the tail."""
-    for grp in model.groups:
-        yield from (grp.rec1, grp.rec2, grp.attn)
-    yield from getattr(model, "tail", ())
+    reference's scales (``lru_lambda`` uniform in [0.1, 0.9)); projections
+    in ``cfg.dtype`` (or ``param_dtype``)."""
+    return Griffin(L.param_cfg(cfg, param_dtype), generator,
+                   ops.resolve_device(device))
 
 
 def _block_fwd(p: Block, x, cfg: ModelConfig, rope=None):
@@ -190,12 +186,20 @@ def _block_fwd(p: Block, x, cfg: ModelConfig, rope=None):
     return x + L.apply_mlp(p.mlp, L.apply_norm(p.ln2, x, cfg), cfg)
 
 
+def _group_fwd(grp: Group, x, cfg: ModelConfig, rope):
+    for blk in (grp.rec1, grp.rec2, grp.attn):
+        x = _block_fwd(blk, x, cfg, rope)
+    return x
+
+
 def forward(model: Griffin, batch, cfg: ModelConfig):
     """-> logits (B, S, V) float32."""
     x = L.embed(model.embed, batch["tokens"], cfg)
     rope = T._rope(x, cfg)
-    for blk in _blocks(model):
-        x = _block_fwd(blk, x, cfg, rope)
+    for grp in model.groups:
+        x = L.remat(_group_fwd, grp, x, cfg, rope)
+    for blk in getattr(model, "tail", ()):
+        x = L.remat(_block_fwd, blk, x, cfg)
     x = L.apply_norm(model.final_norm, x, cfg)
     return L.unembed(model.embed, x, cfg)
 

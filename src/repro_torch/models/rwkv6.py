@@ -17,7 +17,8 @@ single-step update. The reference's casts are kept: projections in
 ``cfg.dtype``; r/k/v/w, the decay and the WKV state in float32. Weights
 the reference uses in float32 (``lora_b``, ``decay_a``, ``decay_b``, the
 mixing and decay vectors) are stored in float32, the projections in
-``cfg.dtype``. Parameters and the family API follow
+``cfg.dtype``. Each layer runs under ``layers.remat`` (the reference's
+``jax.checkpoint``). Parameters and the family API follow
 :mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
@@ -225,11 +226,13 @@ class RWKV(nn.Module):
         self.final_norm = L.norm_init(cfg, cfg.d_model, device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cuda") -> RWKV:
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         param_dtype: torch.dtype | None = None) -> RWKV:
     """Random weights drawn from ``generator`` (on ``device``), at the
-    reference's scales and constants."""
-    return RWKV(cfg, generator, ops.resolve_device(device))
+    reference's scales and constants; projections in ``cfg.dtype`` (or
+    ``param_dtype``)."""
+    return RWKV(L.param_cfg(cfg, param_dtype), generator,
+                ops.resolve_device(device))
 
 
 def _layer_fwd(p: Block, x, cfg: ModelConfig):
@@ -243,7 +246,7 @@ def forward(model: RWKV, batch, cfg: ModelConfig):
     """-> logits (B, S, V) float32."""
     x = L.embed(model.embed, batch["tokens"], cfg)
     for blk in model.layers:
-        x = _layer_fwd(blk, x, cfg)
+        x = L.remat(_layer_fwd, blk, x, cfg)
     x = L.apply_norm(model.final_norm, x, cfg)
     return L.unembed(model.embed, x, cfg)
 

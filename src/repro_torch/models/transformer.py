@@ -10,12 +10,14 @@ reference's, as plain functions over the module:
 :func:`decode_step`, :func:`prefill`. ``input_mode='embeds'`` (pixtral)
 consumes precomputed frontend embeddings instead of token ids.
 
-Attention runs by the tensors' device (``layers.attend``: SDPA on the
-card, the reference's grouped form on the CPU); configs with
-``chunked_attn`` run the chunked online-softmax form in :func:`forward`,
-as the reference does. :func:`decode_step` writes the new token's K/V into
-the cache's tensors in place (the reference returns new arrays) and
-returns the cache dict with ``pos`` advanced.
+Each layer runs under ``layers.remat`` (the reference's
+``jax.checkpoint``): with grad enabled its activations are recomputed in
+the backward pass. Attention runs by the tensors' device
+(``layers.attend``: SDPA on the card, the reference's grouped form on the
+CPU); configs with ``chunked_attn`` run the chunked online-softmax form in
+:func:`forward`, as the reference does. :func:`decode_step` writes the new
+token's K/V into the cache's tensors in place (the reference returns new
+arrays) and returns the cache dict with ``pos`` advanced.
 """
 from __future__ import annotations
 
@@ -51,12 +53,14 @@ class Transformer(nn.Module):
         self.final_norm = L.norm_init(cfg, cfg.d_model, device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cuda") -> Transformer:
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         param_dtype: torch.dtype | None = None) -> Transformer:
     """Random weights drawn from ``generator`` (on ``device``): matrices
-    N(0, 1/fan_in) (embeddings N(0, 0.02²)) in ``cfg.dtype``, norm scales
-    1 and biases 0 in float32, as the reference initialises them."""
-    return Transformer(cfg, generator, ops.resolve_device(device))
+    N(0, 1/fan_in) (embeddings N(0, 0.02²)) in ``cfg.dtype`` (or
+    ``param_dtype``: ``layers.param_cfg``), norm scales 1 and biases 0 in
+    float32, as the reference initialises them."""
+    return Transformer(L.param_cfg(cfg, param_dtype), generator,
+                       ops.resolve_device(device))
 
 
 def _attn(p: L.Attention, h, cfg: ModelConfig, rope):
@@ -87,7 +91,7 @@ def backbone(model: Transformer, x, cfg: ModelConfig):
     """x (B, S, D) activations -> (B, S, D) after all layers."""
     rope = _rope(x, cfg)
     for blk in model.layers:
-        x = _layer_fwd(blk, x, cfg, rope)
+        x = L.remat(_layer_fwd, blk, x, cfg, rope)
     return L.apply_norm(model.final_norm, x, cfg)
 
 

@@ -7,11 +7,12 @@ Decoder: causal self-attention and cross-attention to the encoder output,
 learned positions (``dec_pos[pos % 4096]``). Parametric LayerNorm, no
 RoPE, a GELU MLP (tanh approximation, ``jax.nn.gelu``'s default).
 Cross-attention adds the query bias only; the encoder's K/V carry none.
-Attention runs by device (``layers.attend``); the encoder's and the
-cross-attention's mask-free form lets SDPA take its flash backend on the
-card. Parameters and the family API follow
-:mod:`repro_torch.models.transformer`; :func:`decode_step` writes the
-self-attention cache in place.
+Each encoder and decoder layer runs under ``layers.remat`` (the
+reference's ``jax.checkpoint``). Attention runs by device
+(``layers.attend``); the encoder's and the cross-attention's mask-free
+form lets SDPA take its flash backend on the card. Parameters and the
+family API follow :mod:`repro_torch.models.transformer`;
+:func:`decode_step` writes the self-attention cache in place.
 """
 from __future__ import annotations
 
@@ -81,11 +82,12 @@ class Whisper(nn.Module):
         self.dec_norm = L.norm_init(cfg, cfg.d_model, device)
 
 
-def init(cfg: ModelConfig, generator: torch.Generator,
-         device="cuda") -> Whisper:
+def init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
+         param_dtype: torch.dtype | None = None) -> Whisper:
     """Random weights drawn from ``generator`` (on ``device``), at the
-    reference's scales."""
-    return Whisper(cfg, generator, ops.resolve_device(device))
+    reference's scales; matrices in ``cfg.dtype`` (or ``param_dtype``)."""
+    return Whisper(L.param_cfg(cfg, param_dtype), generator,
+                   ops.resolve_device(device))
 
 
 def _sinusoid(s: int, d: int, dtype, device):
@@ -104,10 +106,14 @@ def encode(model: Whisper, frames, cfg: ModelConfig):
     x = frames.to(cfg.torch_dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     for lp in model.enc_layers:
-        h = L.apply_norm(lp.ln1, x, cfg)
-        x = x + L.causal_attention(lp.attn, h, cfg, causal=False)
-        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg))
+        x = L.remat(_enc_layer, lp, x, cfg)
     return L.apply_norm(model.enc_norm, x, cfg)
+
+
+def _enc_layer(lp: EncLayer, x, cfg: ModelConfig):
+    h = L.apply_norm(lp.ln1, x, cfg)
+    x = x + L.causal_attention(lp.attn, h, cfg, causal=False)
+    return x + _mlp(lp.mlp, L.apply_norm(lp.ln2, x, cfg))
 
 
 def _cross_attention(p: L.Attention, x, enc_kv, cfg: ModelConfig):
@@ -133,16 +139,19 @@ def decode(model: Whisper, tokens, enc_out, cfg: ModelConfig):
     """Teacher-forced decoder -> logits (B, S_dec, V) float32."""
     x = L.embed(model.embed, tokens, cfg)
     x = x + model.dec_pos[:tokens.shape[1]][None].to(x.dtype)
-    no_rope = cfg.replace(rope_theta=0.0)
     for lp in model.dec_layers:
-        h = L.apply_norm(lp.ln1, x, cfg)
-        x = x + L.causal_attention(lp.self_attn, h, no_rope)
-        h = L.apply_norm(lp.ln2, x, cfg)
-        x = x + _cross_attention(lp.cross_attn, h,
-                                 _enc_kv(lp.cross_attn, enc_out, cfg), cfg)
-        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))
+        x = L.remat(_dec_layer, lp, x, enc_out, cfg)
     x = L.apply_norm(model.dec_norm, x, cfg)
     return L.unembed(model.embed, x, cfg)
+
+
+def _dec_layer(lp: DecLayer, x, enc_out, cfg: ModelConfig):
+    h = L.apply_norm(lp.ln1, x, cfg)
+    x = x + L.causal_attention(lp.self_attn, h, cfg.replace(rope_theta=0.0))
+    h = L.apply_norm(lp.ln2, x, cfg)
+    x = x + _cross_attention(lp.cross_attn, h,
+                             _enc_kv(lp.cross_attn, enc_out, cfg), cfg)
+    return x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))
 
 
 def forward(model: Whisper, batch, cfg: ModelConfig):

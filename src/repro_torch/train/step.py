@@ -1,0 +1,94 @@
+"""Train-step factory (port of ``repro/train/step.py``): loss -> gradients
+-> AdamW, with optional microbatch gradient accumulation and an optional
+gradient transform (the compression hook, ``optim/compression.py``).
+
+The model is an ``nn.Module`` of a family (``models.get_family``) whose
+parameters are updated in place; the trainer holds them in float32
+(``init(..., param_dtype=torch.float32)``), as the reference holds every
+parameter. The reference's ``unroll_layers`` patches ``lax.scan`` for the
+dry run's cost analysis and has no counterpart: the port runs its layers in
+a Python loop, and the dry run is not ported.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.models import get_family
+from repro_torch.models.base import ModelConfig
+from repro_torch.optim import adamw
+
+
+def make_loss_fn(cfg: ModelConfig):
+    fam = get_family(cfg)
+    return lambda model, batch: fam.loss_fn(model, batch, cfg)
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
+                    n_microbatches: int = 1,
+                    grad_transform: Callable[[dict], dict] | None = None):
+    """Returns train_step(model, opt_state, batch) -> (model, opt_state,
+    metrics): ``metrics`` holds ``loss``, ``lr`` and ``grad_norm`` as
+    device scalars; the model's parameters and ``opt_state`` are updated
+    in place (``adamw.update``).
+
+    ``n_microbatches`` > 1 splits the batch on dim 0 into that many
+    contiguous slices (the reference's reshape) and runs a backward pass
+    for each: the float32 ``.grad`` of the parameters accumulates them
+    (the first backward writes g1 = 0 + g1 exactly, so the sum is the
+    reference's scan sum without a second buffer of gradients), then is
+    divided by ``n_microbatches``, and so is the loss. A parameter the
+    loss does not reach gets a zero gradient, as ``jax.grad`` gives it.
+    ``grad_transform(grads) -> grads`` maps the gradient dict (parameter
+    name -> tensor) before AdamW. The gradients are released after the
+    update.
+    """
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        for k, p in params.items():
+            if p.dtype != torch.float32:
+                raise ValueError(f"{k} is {p.dtype}: the trainer keeps "
+                                 "float32 parameters (init(..., "
+                                 "param_dtype=torch.float32))")
+            p.grad = None
+        if n_microbatches > 1:
+            micro = [_split(x, n_microbatches) for x in batch.values()]
+            loss = 0.0
+            for i in range(n_microbatches):
+                mb = {k: parts[i] for k, parts in zip(batch, micro)}
+                mloss = loss_fn(model, mb)
+                mloss.backward()
+                loss = loss + mloss.detach()
+            loss = loss / n_microbatches
+        else:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        grads = {}
+        for k, p in params.items():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p, dtype=torch.float32)
+            elif n_microbatches > 1:
+                p.grad.div_(n_microbatches)
+            grads[k] = p.grad
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        _, opt_state, metrics = adamw.update(grads, opt_state, params,
+                                             opt_cfg)
+        for p in params.values():
+            p.grad = None
+        metrics["loss"] = loss
+        return model, opt_state, metrics
+
+    return train_step
+
+
+def _split(x: torch.Tensor, n: int):
+    """dim 0 of ``x`` in ``n`` contiguous slices of equal size."""
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} does not split into {n} "
+                         "microbatches")
+    return torch.split(x, x.shape[0] // n)

@@ -114,3 +114,30 @@ def jax_params_numpy(params, prefix: str = "") -> dict:
         else:
             out[f"{prefix}{k}"] = np.asarray(v)
     return out
+
+
+def randomise(d: dict, seed: int) -> dict:
+    """Random biases, norm scales, and the families' constant inits (the
+    rwkv mixing and decay vectors, the LRU and conv biases)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in d.items():
+        leaf = k.rsplit(".", 1)[-1]
+        if leaf in ("bq", "bk", "bv", "bias", "conv_b", "b_a", "b_x"):
+            v = rng.normal(0.0, 0.5, v.shape).astype(np.float32)
+        elif leaf in ("scale", "q_norm", "k_norm", "ln_scale"):
+            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
+        elif leaf in ("mu", "mu_x", "mu_k", "mu_r"):
+            v = rng.uniform(0.0, 1.0, v.shape).astype(np.float32)
+        elif leaf == "w0":
+            v = rng.uniform(-4.0, -1.0, v.shape).astype(np.float32)
+        out[k] = v
+    return out
+
+
+def replace_params(tree: dict, flat: dict, jnp, prefix: str = "") -> dict:
+    """``tree`` (a reference param tree) with its leaves taken from the
+    dot-joined ``flat`` dict."""
+    return {k: replace_params(v, flat, jnp, f"{prefix}{k}.")
+            if isinstance(v, dict) else jnp.asarray(flat[f"{prefix}{k}"])
+            for k, v in tree.items()}

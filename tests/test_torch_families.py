@@ -17,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import jax_params_numpy
+from _torch_parity import jax_params_numpy, randomise as _randomise, \
+    replace_params as _replace
 from repro_torch import bridge, configs
 from repro_torch.models import (get_family, layers as L, moe as M,
                                 rglru as G, rwkv6 as R, whisper as W)
@@ -48,30 +49,6 @@ def _f32(fam):
 
 def _rand(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
-
-
-def _randomise(d: dict, seed: int) -> dict:
-    """Random biases, norm scales, and the families' constant inits (the
-    rwkv mixing and decay vectors, the LRU and conv biases)."""
-    rng = np.random.default_rng(seed)
-    out = {}
-    for k, v in d.items():
-        leaf = k.rsplit(".", 1)[-1]
-        if leaf in ("bq", "bk", "bv", "bias", "conv_b", "b_a", "b_x"):
-            v = rng.normal(0.0, 0.5, v.shape).astype(np.float32)
-        elif leaf in ("scale", "q_norm", "k_norm", "ln_scale"):
-            v = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
-        elif leaf in ("mu", "mu_x", "mu_k", "mu_r"):
-            v = rng.uniform(0.0, 1.0, v.shape).astype(np.float32)
-        elif leaf == "w0":
-            v = rng.uniform(-4.0, -1.0, v.shape).astype(np.float32)
-        out[k] = v
-    return out
-
-
-def _replace(tree: dict, flat: dict, jnp, prefix: str = "") -> dict:
-    return {k: _replace(v, flat, jnp, f"{prefix}{k}.") if isinstance(v, dict)
-            else jnp.asarray(flat[f"{prefix}{k}"]) for k, v in tree.items()}
 
 
 @pytest.fixture(scope="module")
