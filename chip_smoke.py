@@ -2,12 +2,13 @@
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed S] [--s1-only | --serve-only |
-                           --train-only]
+                           --train-only | --mesh-only]
 
 ``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
 draws, without the main path's q-errors) and prints no result lines;
 ``--serve-only`` runs phases 1-2 and L1-L3 alone and prints none either;
-``--train-only`` runs phases 1-2 and T1 alone, no result lines.
+``--train-only`` runs phases 1-2 and T1 alone, ``--mesh-only`` phases 1-2
+and M1 alone, no result lines.
 
 Phases, in order; each raises on failure:
 
@@ -276,6 +277,25 @@ T1. a. ``launch.train.build_trainer`` for ``qwen2.5-3b`` at its published
     2 restarts, final loss and params within ``T1_FT_TOL``; logs whether
     they are bit-equal. The full-width state's checkpoints (~41 GB of npz)
     are not written here.
+
+M1. The mesh trainer (``launch.train.build_trainer(mesh=...)``: DTensor
+    parameters and AdamW state placed by ``sharding.rules.param_specs``,
+    each block's weights gathered inside ``layers.remat`` by
+    ``sharding.act``) on ``make_host_mesh()`` over a one-rank NCCL group
+    (``launch.train.join_process_group``), beside the plain trainer, both
+    built from the seed: ``qwen2.5-3b`` at its published width, depth cut
+    to 12 layers (``M1_LAYERS``: both trainers fit the card together), 3
+    steps on the T1 batches (4 x 512 tokens, 2 microbatches) under
+    ``torch.use_deterministic_algorithms(True)``, then 3 more as users run
+    them. Fatal: every parameter and ``m`` / ``v`` leaf of the mesh trainer
+    a DTensor with the placements ``param_specs`` gives; in the
+    deterministic steps each loss and grad norm, and after them every
+    parameter, ``m`` and ``v``, bit-equal between the two trainers; in the
+    default steps loss and grad norm within ``M1_TOL`` (cuDNN attention's
+    backward, SDPA's route on the card, is not deterministic: the plain
+    trainer does not repeat itself bit for bit there). Logs each step's
+    CUDA-event ms and host ms (the call without a sync: what DTensor
+    dispatch adds) for both, launch calls a step and peak memory.
 
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
@@ -4100,6 +4120,164 @@ def t1_driver(torch, dev):
                          "uninterrupted one")
 
 
+# ---------------------------------------------- M1: the mesh trainer ----
+
+M1_LAYERS = 12       # depth cut: the plain and the mesh trainer fit together
+M1_STEPS = 3         # deterministic (bit-equal), then as many default steps
+# the default steps' loss and grad norm, relative: cuDNN attention's
+# backward accumulates in a varying order, so the first default step
+# parts the trainers by 7e-5 to 1.2e-4 of the grad norm, and the later
+# ones by up to 6.8e-4 once their parameters have parted (Adam's early
+# steps move each weight by ~lr whatever the size of its gradient; H100
+# 80GB HBM3 at 700 W). A nondeterministic spread, not a fit: the limit
+# keeps ~3x over the largest reading seen
+M1_TOL = 2e-3
+
+
+def phase_mesh_training(torch, seed, dev="cuda"):
+    """M1 (the module docstring): the mesh trainer on a one-rank NCCL
+    group against the plain trainer, bit for bit."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    dev = torch.device(dev)
+    had_group = dist.is_initialized()
+    train.join_process_group(dev)
+    try:
+        m1_trainers(torch, seed, dev)
+    finally:
+        if not had_group:
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def m1_trainers(torch, seed, dev):
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules
+    cfg = configs.get_config(T1_ARCH).replace(n_layers=M1_LAYERS)
+    tag = f"M1 {T1_ARCH} ({M1_LAYERS} layers)"
+    opt_cfg = adamw.AdamWConfig(**T1_OPT)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(device=dev.type)
+    t0 = time.perf_counter()
+    plain, popt, pstep = train.build_trainer(
+        cfg, opt_cfg, microbatches=T1_MICRO, seed=seed, device=dev)
+    sharded, sopt, sstep = train.build_trainer(
+        cfg, opt_cfg, microbatches=T1_MICRO, seed=seed, device=dev,
+        mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    specs = rules.param_specs(sharded, mesh)
+    bad = [k for k, p in sharded.named_parameters()
+           if not all(isinstance(t, DTensor)
+                      and tuple(t.placements) == specs[k].placements
+                      for t in (p, sopt["m"][k], sopt["v"][k]))]
+    n = sum(p.numel() for p in plain.parameters())
+    n_sharded = sum(any(not pl.is_replicate() for pl in s.placements)
+                    for s in specs.values())
+    log(f"{tag} ({smi_line()}): mesh {dict(rules.mesh_axes(mesh))} on a "
+        f"one-rank {torch.distributed.get_backend()} group; {n:,} "
+        f"parameters in {len(specs)} tensors ({n_sharded} with a Shard "
+        f"placement by the rules, e.g. layers.0.attn.wq "
+        f"{specs['layers.0.attn.wq'].axes}); both trainers built in "
+        f"{init_s:.3f} s, {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+        f"GiB allocated; DTensors with the rules' placements: "
+        f"{len(specs) - len(bad)} of {len(specs)} (params, m and v)")
+    if bad:
+        raise SystemExit(f"{tag}: not placed by the rules: {bad[:4]}")
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=T1_BATCH, seq=T1_SEQ,
+                         seed=seed, device=dev)
+    trainers = (("plain", plain, popt, pstep), ("mesh", sharded, sopt, sstep))
+    # cuBLAS's deterministic workspace setting, which is PyTorch's default
+    # workspace on sm_90 (32 MiB) and which deterministic mode requires
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        rows = m1_steps(torch, tag, pipe, trainers, "deterministic", 0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    m1_equal(torch, tag, plain, popt, sharded, sopt,
+             f"after {M1_STEPS} deterministic steps")
+    m1_times(torch, tag, rows, "deterministic")
+    rows = m1_steps(torch, tag, pipe, trainers, "default", M1_TOL)
+    m1_times(torch, tag, rows, "default")
+    peak = torch.cuda.max_memory_allocated()
+    batch = pipe.next()
+    calls = {name: launches_of(torch, lambda: step(model, opt, batch))
+             for name, model, opt, step in trainers}
+    log(f"{tag}: launch calls / device kernels a step (default): plain "
+        f"{calls['plain'][0]} / {calls['plain'][1]}, mesh "
+        f"{calls['mesh'][0]} / {calls['mesh'][1]}; peak "
+        f"{peak / 2 ** 30:.3f} GiB (both trainers' parameters, m and v "
+        f"live)")
+
+
+def m1_steps(torch, tag, pipe, trainers, mode, tol):
+    """M1_STEPS steps of each trainer on the same batches: tol 0 holds
+    each loss and grad norm bit-equal, else within ``tol`` relative.
+    -> per trainer (event ms, host ms, loss, grad norm) a step."""
+    rows = {name: [] for name, *_ in trainers}
+    for i in range(M1_STEPS):
+        batch = pipe.next()
+        out = {}
+        for name, model, opt, step in trainers:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            _, _, m = step(model, opt, batch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            torch.cuda.synchronize()
+            out[name] = m
+            rows[name].append((start.elapsed_time(end), host_ms,
+                               float(m["loss"]), float(m["grad_norm"])))
+        (_, _, lp, gp), (_, _, lm, gm) = rows["plain"][-1], rows["mesh"][-1]
+        rel = max(abs(lp - lm) / abs(lp), abs(gp - gm) / gp)
+        same = all(torch.equal(out["plain"][k], out["mesh"][k])
+                   for k in ("loss", "grad_norm", "lr"))
+        log(f"{tag} {mode} step {i + 1}: loss {lp:.6f} / {lm:.6f}, grad "
+            f"norm {gp:.6f} / {gm:.6f} (plain / mesh); bit-equal: {same}; "
+            f"max relative |diff| {rel:.3e} (tol "
+            f"{tol if tol else 'bit-equal'})")
+        if not (same if tol == 0 else rel <= tol):
+            raise SystemExit(f"{tag}: {mode} step {i + 1}'s loss or grad "
+                             "norm differs between the plain and mesh "
+                             "trainers")
+    return rows
+
+
+def m1_times(torch, tag, rows, mode):
+    for name, r in rows.items():
+        log(f"{tag} {name} {mode} step ({T1_BATCH} x {T1_SEQ} tokens in "
+            f"{T1_MICRO} microbatches, {smi_line()}): CUDA events "
+            + ", ".join(f"{t[0]:.3f}" for t in r) + " ms; host (the call, "
+            "no sync) " + ", ".join(f"{t[1]:.3f}" for t in r) + " ms")
+
+
+def m1_equal(torch, tag, plain, popt, sharded, sopt, when):
+    """Every parameter, m and v of the two trainers bit-equal (the mesh
+    trainer's one rank holds the whole of each)."""
+    bad = [k for k, p in plain.named_parameters()
+           if not (torch.equal(p, sharded.get_parameter(k).to_local())
+                   and torch.equal(popt["m"][k], sopt["m"][k].to_local())
+                   and torch.equal(popt["v"][k], sopt["v"][k].to_local()))]
+    log(f"{tag} {when}: parameters, m and v bit-equal in "
+        f"{len(popt['m']) - len(bad)} of {len(popt['m'])} tensors; step "
+        f"{int(popt['step'])} / {int(sopt['step'])}")
+    if bad or int(popt["step"]) != int(sopt["step"]):
+        raise SystemExit(f"{tag}: the mesh trainer's state differs from "
+                         f"the plain trainer's {when}: {bad[:4]}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4109,6 +4287,8 @@ def main(argv=None) -> int:
                     help="phases 1-2 and L1-L3 alone; no result lines")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1-2 and T1 alone; no result lines")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="phases 1-2 and M1 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -4133,6 +4313,10 @@ def main(argv=None) -> int:
     if args.train_only:
         phase_training(torch, args.seed)
         lap("T1 training")
+        return 0
+    if args.mesh_only:
+        phase_mesh_training(torch, args.seed)
+        lap("M1 mesh trainer")
         return 0
     if args.serve_only:
         phase_lm_serving(torch, args.seed)
@@ -4267,6 +4451,8 @@ def main(argv=None) -> int:
     lap("L3 model families")
     phase_training(torch, args.seed)
     lap("T1 training")
+    phase_mesh_training(torch, args.seed)
+    lap("M1 mesh trainer")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

@@ -20,6 +20,15 @@ checkpoint written by either package restores in the other. Guarantees:
 
 bfloat16 leaves are written as float32 (numpy has no bfloat16; exact) and
 restored to the template's dtype.
+
+A sharded state (DTensor leaves, the mesh trainer's) is saved whole: every
+rank takes part in gathering each DTensor, rank 0 alone copies the full
+tensors to the host and writes them, and the others wait for it (a
+barrier after the write, which rank 0 reaches even if the write fails;
+``save_async``'s ``wait`` holds it). ``restore`` gives such a leaf as a
+full host tensor, as the reference restores host state;
+``ft.elastic.reshard`` (or ``ft.failures.copy_into``) places it on a
+mesh.
 """
 from __future__ import annotations
 
@@ -33,6 +42,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _items(tree: dict, prefix: str = ""):
@@ -49,13 +60,23 @@ def _host(t: torch.Tensor) -> np.ndarray:
     """A copy on the host (a CPU tensor is copied too: the caller may
     update it in place while a writer thread holds the copy)."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.to("cpu", copy=True).numpy()
 
 
-def _flatten(tree: dict) -> dict[str, np.ndarray]:
-    return {k: _host(v) for k, v in _items(tree)}
+def _flatten(tree: dict) -> dict[str, np.ndarray] | None:
+    """Host copies of ``tree``'s leaves by key. A sharded tree is gathered
+    leaf by leaf on every rank (the gather is a collective), and only rank
+    0, which writes, copies to the host: the others get None."""
+    if not _sharded(tree) or dist.get_rank() == 0:
+        return {k: _host(v) for k, v in _items(tree)}
+    for _, v in _items(tree):
+        if isinstance(v, DTensor):
+            v.detach().full_tensor()
+    return None
 
 
 def _unflatten_into(tree: dict, flat: dict[str, np.ndarray],
@@ -71,8 +92,13 @@ def _unflatten_into(tree: dict, flat: dict[str, np.ndarray],
         arr = flat[key]
         if arr.shape != tuple(leaf.shape):
             raise ValueError(f"{key}: {arr.shape} != {tuple(leaf.shape)}")
-        out[k] = torch.as_tensor(arr).to(device=leaf.device, dtype=leaf.dtype)
+        dev = "cpu" if isinstance(leaf, DTensor) else leaf.device
+        out[k] = torch.as_tensor(arr).to(device=dev, dtype=leaf.dtype)
     return out
+
+
+def _sharded(tree: dict) -> bool:
+    return any(isinstance(v, DTensor) for _, v in _items(tree))
 
 
 def config_hash(obj: Any) -> str:
@@ -89,14 +115,26 @@ class CheckpointManager:
         self.n_hosts = n_hosts
         self._worker: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._barrier = False      # the outstanding save was sharded
 
     # ------------------------------------------------------------- save ----
     def save(self, step: int, state: dict, extra: dict | None = None) -> Path:
-        return self._write(step, _flatten(state), extra or {})
+        flat = _flatten(state)          # every rank gathers a sharded state
+        if not _sharded(state):
+            return self._write(step, flat, extra or {})
+        try:
+            if flat is not None:
+                self._write(step, flat, extra or {})
+        finally:                        # rank 0 reaches it if its write fails
+            dist.barrier()
+        return self.dir / f"step_{step:08d}"
 
     def save_async(self, step: int, state: dict, extra: dict | None = None):
         self.wait()   # only one outstanding save
         flat = _flatten(state)   # synchronous device -> host snapshot
+        self._barrier = _sharded(state)
+        if flat is None:
+            return
         self._worker = threading.Thread(
             target=self._write_reporting, args=(step, flat, extra or {}),
             daemon=True)
@@ -107,6 +145,9 @@ class CheckpointManager:
         if self._worker is not None:
             self._worker.join()
             self._worker = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("asynchronous checkpoint save failed") from err
@@ -163,7 +204,8 @@ class CheckpointManager:
                 ) -> tuple[dict, dict, int] | None:
         """-> (state, extra, step) or None if no valid checkpoint. The
         state has ``template``'s structure, each leaf a new tensor of the
-        template leaf's dtype on its device."""
+        template leaf's dtype on its device (a DTensor leaf's: a full
+        tensor on the host)."""
         if step is None:
             step = self.latest_step()
         if step is None:

@@ -21,6 +21,9 @@ import time
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.sharding import rules
 
 
 class WorkerFailure(RuntimeError):
@@ -43,10 +46,14 @@ class HeartbeatMonitor:
 @torch.no_grad()
 def copy_into(dst: dict, src: dict) -> None:
     """Copy every tensor of ``src`` into the same leaf of ``dst`` (nested
-    dicts of the same structure), in place."""
+    dicts of the same structure), in place. A DTensor leaf of ``dst`` takes
+    its own shard of a full tensor of ``src`` (a restored checkpoint)."""
     for k, v in dst.items():
         if isinstance(v, dict):
             copy_into(v, src[k])
+        elif isinstance(v, DTensor) and not isinstance(src[k], DTensor):
+            v.to_local().copy_(rules.local_chunk(src[k], v.device_mesh,
+                                                 v.placements))
         else:
             v.copy_(src[k])
 

@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 
 def param_cfg(cfg: ModelConfig, param_dtype: Optional[torch.dtype]
@@ -50,7 +51,11 @@ def param_cfg(cfg: ModelConfig, param_dtype: Optional[torch.dtype]
 def remat(fn, *args):
     """``jax.checkpoint``'s counterpart: ``fn(*args)`` keeping only its
     inputs for the backward pass, which recomputes the rest, while grad is
-    enabled; a plain call under ``torch.no_grad()`` (the serve steps)."""
+    enabled; a plain call under ``torch.no_grad()`` (the serve steps).
+    Under ``act.activation_sharding`` the block among ``args`` has its
+    DTensor parameters gathered inside ``fn`` (``act.gathering``), so the
+    recompute gathers them again."""
+    fn = act.gathering(fn)
     if torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)

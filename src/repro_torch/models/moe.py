@@ -30,6 +30,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L, transformer as T
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 
 def capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -157,13 +158,15 @@ def _layer_fwd(p: Block, x, cfg: ModelConfig, rope=None):
 
 
 def forward(model: MoETransformer, batch, cfg: ModelConfig):
-    """-> logits (B, S, V) float32."""
-    x = L.embed(model.embed, batch["tokens"], cfg)
-    rope = T._rope(x, cfg)
-    for blk in model.layers:
-        x = L.remat(_layer_fwd, blk, x, cfg, rope)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    return L.unembed(model.embed, x, cfg)
+    """-> logits (B, S, V) float32 (non-layer parameters gathered on a
+    mesh, as ``transformer.forward``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, batch["tokens"], cfg)
+        rope = T._rope(x, cfg)
+        for blk in model.layers:
+            x = L.remat(_layer_fwd, blk, x, cfg, rope)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        return L.unembed(model.embed, x, cfg)
 
 
 def loss_fn(model: MoETransformer, batch, cfg: ModelConfig):

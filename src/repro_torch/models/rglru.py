@@ -29,6 +29,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L, transformer as T
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 _C = 8.0   # RG-LRU decay sharpness constant (Griffin)
 
@@ -193,15 +194,17 @@ def _group_fwd(grp: Group, x, cfg: ModelConfig, rope):
 
 
 def forward(model: Griffin, batch, cfg: ModelConfig):
-    """-> logits (B, S, V) float32."""
-    x = L.embed(model.embed, batch["tokens"], cfg)
-    rope = T._rope(x, cfg)
-    for grp in model.groups:
-        x = L.remat(_group_fwd, grp, x, cfg, rope)
-    for blk in getattr(model, "tail", ()):
-        x = L.remat(_block_fwd, blk, x, cfg)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    return L.unembed(model.embed, x, cfg)
+    """-> logits (B, S, V) float32 (non-layer parameters gathered on a
+    mesh, as ``transformer.forward``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, batch["tokens"], cfg)
+        rope = T._rope(x, cfg)
+        for grp in model.groups:
+            x = L.remat(_group_fwd, grp, x, cfg, rope)
+        for blk in getattr(model, "tail", ()):
+            x = L.remat(_block_fwd, blk, x, cfg)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        return L.unembed(model.embed, x, cfg)
 
 
 def loss_fn(model: Griffin, batch, cfg: ModelConfig):

@@ -32,6 +32,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 _LORA = 32     # lora rank for the ddlerp / decay modulators
 _MIX = 5       # r, w, k, v, g
@@ -243,12 +244,14 @@ def _layer_fwd(p: Block, x, cfg: ModelConfig):
 
 
 def forward(model: RWKV, batch, cfg: ModelConfig):
-    """-> logits (B, S, V) float32."""
-    x = L.embed(model.embed, batch["tokens"], cfg)
-    for blk in model.layers:
-        x = L.remat(_layer_fwd, blk, x, cfg)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    return L.unembed(model.embed, x, cfg)
+    """-> logits (B, S, V) float32 (non-layer parameters gathered on a
+    mesh, as ``transformer.forward``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, batch["tokens"], cfg)
+        for blk in model.layers:
+            x = L.remat(_layer_fwd, blk, x, cfg)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        return L.unembed(model.embed, x, cfg)
 
 
 def loss_fn(model: RWKV, batch, cfg: ModelConfig):

@@ -27,6 +27,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 
 class Block(nn.Module):
@@ -96,9 +97,12 @@ def backbone(model: Transformer, x, cfg: ModelConfig):
 
 
 def forward(model: Transformer, batch, cfg: ModelConfig):
-    """-> logits (B, S, V) float32."""
-    x = backbone(model, _inputs(model, batch, cfg), cfg)
-    return L.unembed(model.embed, x, cfg)
+    """-> logits (B, S, V) float32. On a mesh the non-layer parameters
+    (the embedding, ``lm_head``, the final norm) are gathered around the
+    block loop (``act.gathered``), each block inside ``layers.remat``."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = backbone(model, _inputs(model, batch, cfg), cfg)
+        return L.unembed(model.embed, x, cfg)
 
 
 def loss_fn(model: Transformer, batch, cfg: ModelConfig):

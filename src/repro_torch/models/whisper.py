@@ -26,6 +26,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.base import ModelConfig
+from repro_torch.sharding import act
 
 _MAX_DEC = 4096  # learned decoder positions allocated (whisper ships 448)
 
@@ -156,9 +157,11 @@ def _dec_layer(lp: DecLayer, x, enc_out, cfg: ModelConfig):
 
 def forward(model: Whisper, batch, cfg: ModelConfig):
     """batch ``frames`` (B, S_enc, D) and ``tokens`` (B, S_dec) -> logits
-    (B, S_dec, V) float32."""
-    return decode(model, batch["tokens"], encode(model, batch["frames"], cfg),
-                  cfg)
+    (B, S_dec, V) float32 (non-layer parameters gathered on a mesh, as
+    ``transformer.forward``)."""
+    with act.gathered(model, "embed", "dec_pos", "enc_norm", "dec_norm"):
+        return decode(model, batch["tokens"],
+                      encode(model, batch["frames"], cfg), cfg)
 
 
 def loss_fn(model: Whisper, batch, cfg: ModelConfig):

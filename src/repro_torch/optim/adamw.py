@@ -14,6 +14,12 @@ tensors, computed as the reference computes them (``b1 ** step`` and
 ``cos(π·prog)`` in float32, not in Python doubles). :func:`update` writes
 the parameters and ``m`` / ``v`` in place under ``torch.no_grad()``: a
 functional copy would hold a second set of parameters.
+
+A leaf may be a ``DTensor`` (the mesh trainer's, ``launch/train.py``):
+:func:`init` keeps its placements, :func:`global_norm` reduces each leaf's
+sum of squares over the shards before adding it, and :func:`update`, being
+elementwise on leaves of equal placements, runs on the local shards (no
+DTensor dispatch, the same arithmetic per element).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +72,10 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params: dict) -> dict:
-    """float32 ``m`` and ``v`` shaped as ``params``, an int32 ``step`` on
-    their device."""
+    """float32 ``m`` and ``v`` shaped (and, for DTensor leaves, placed) as
+    ``params``, an int32 ``step`` on their device."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
     dev = next(leaves(params))[1].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -78,30 +85,45 @@ def global_norm(tree: dict) -> torch.Tensor:
     """sqrt of the sum of the leaves' float32 sums of squares, added one
     leaf after another in :func:`leaves` order (a model's flat dict: its
     sorted parameter names), as the reference adds them in its tree
-    order."""
+    order. A DTensor leaf's sum is reduced over its shards first (one
+    all-reduce a sharded leaf)."""
     total = None
     for _, leaf in leaves(tree):
         sq = torch.sum(torch.square(leaf.float()))
+        if isinstance(sq, DTensor):
+            sq = sq.full_tensor()
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float
                         ) -> tuple[dict, torch.Tensor]:
-    """Scales ``grads`` IN PLACE by min(1, max_norm / norm); returns them
-    and the norm before scaling."""
+    """Scales ``grads`` by min(1, max_norm / norm); returns them and the
+    norm before scaling. float32 leaves are scaled IN PLACE; a leaf of
+    another dtype is replaced, in the returned tree, by its float32
+    product, as the reference promotes ``g * scale``."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    for _, g in leaves(grads):
-        g.mul_(scale)
-    return grads, norm
+
+    def clip(g):
+        if g.dtype == torch.float32:
+            _local(g).mul_(scale)
+            return g
+        return g.float() * scale
+    return tree_map(clip, grads), norm
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage: in-place writes reach the
+    DTensor), or ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 @torch.no_grad()
 def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig
            ) -> tuple[dict, dict, dict]:
     """One clipped AdamW step, in place on ``params``, ``state`` and (the
-    clip) ``grads``. Returns (params, state, metrics) as the reference
+    clip) float32 ``grads``. Returns (params, state, metrics) as the reference
     does: the same objects, and ``lr`` and ``grad_norm`` as device
     scalars."""
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
@@ -116,6 +138,13 @@ def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig
             leaves(state["v"]), strict=True):
         if not kp == kg == km == kv:
             raise KeyError(f"trees differ: {kp}, {kg}, {km}, {kv}")
+        if isinstance(p, DTensor):
+            if not (_placements(p) == _placements(g) == _placements(m)
+                    == _placements(v)):
+                raise ValueError(f"{kp}: placements differ: {_placements(p)}"
+                                 f", {_placements(g)}, {_placements(m)}, "
+                                 f"{_placements(v)}")
+            p, g, m, v = p.to_local(), g.to_local(), m.to_local(), v.to_local()
         gf = g.float()
         t = torch.mul(gf, 1 - b1)
         m.mul_(b1).add_(t)                       # b1·m + (1-b1)·g
@@ -123,10 +152,19 @@ def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig
         v.mul_(b2).add_(t)                       # b2·v + (1-b2)·g·g
         torch.div(v, bc2, out=t).sqrt_().add_(cfg.eps)
         u = torch.div(m, bc1).div_(t)            # m̂ / (√v̂ + ε)
-        u.add_(torch.mul(p.float(), cfg.weight_decay, out=t))
-        u.mul_(lr)
         if p.dtype == torch.float32:
+            u.add_(torch.mul(p, cfg.weight_decay, out=t))
+            u.mul_(lr)
             p.sub_(u)
-        else:                                    # p - lr·(…) in float32
-            p.copy_(p.float().sub_(u))
+        else:
+            # the reference's wd·p is in p's dtype (a weakly typed Python
+            # float takes p's dtype), the rest in float32
+            wd = torch.tensor(cfg.weight_decay, dtype=p.dtype,
+                              device=p.device)
+            u.add_(torch.mul(p, wd)).mul_(lr)
+            p.copy_(p.float().sub_(u))           # p - lr·(…) in float32
     return params, state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _placements(t) -> tuple:
+    return tuple(t.placements) if isinstance(t, DTensor) else ()

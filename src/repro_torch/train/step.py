@@ -7,17 +7,27 @@ parameters are updated in place; the trainer holds them in float32
 (``init(..., param_dtype=torch.float32)``), as the reference holds every
 parameter. The reference's ``unroll_layers`` patches ``lax.scan`` for the
 dry run's cost analysis and has no counterpart: the port runs its layers in
-a Python loop, and the dry run is not ported.
+a Python loop, and the dry run is not ported yet.
+
+On a mesh (``mesh=``; the parameters and AdamW state are DTensors placed
+by ``sharding.rules``, ``launch/train.build_trainer``) every rank runs the
+same step on its own shard of each microbatch (``rules.batch_specs``), its
+blocks gathering their weights one at a time (``sharding.act``); the
+gradients reach ``.grad`` in the parameters' placements, averaged over the
+data ranks, and the loss is averaged over them too.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.models import get_family
 from repro_torch.models.base import ModelConfig
 from repro_torch.optim import adamw
+from repro_torch.sharding import act, rules
 
 
 def make_loss_fn(cfg: ModelConfig):
@@ -27,7 +37,8 @@ def make_loss_fn(cfg: ModelConfig):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     n_microbatches: int = 1,
-                    grad_transform: Callable[[dict], dict] | None = None):
+                    grad_transform: Callable[[dict], dict] | None = None,
+                    mesh=None):
     """Returns train_step(model, opt_state, batch) -> (model, opt_state,
     metrics): ``metrics`` holds ``loss``, ``lr`` and ``grad_norm`` as
     device scalars; the model's parameters and ``opt_state`` are updated
@@ -43,8 +54,18 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     ``grad_transform(grads) -> grads`` maps the gradient dict (parameter
     name -> tensor) before AdamW. The gradients are released after the
     update.
+
+    With ``mesh``, each microbatch is the rank's shard of the reference's
+    microbatch (the rows the reference's sharding gives the rank), and
+    ``metrics["loss"]`` is averaged over the data ranks.
     """
     loss_fn = make_loss_fn(cfg)
+    if mesh is None:
+        local, sharding = _whole, contextlib.nullcontext
+    else:
+        dp = tuple(a for a in mesh.mesh_dim_names if a in ("pod", "data"))
+        local = _local_batch(mesh)
+        sharding = lambda: act.activation_sharding(mesh, dp)   # noqa: E731
 
     def train_step(model, opt_state, batch):
         params = dict(model.named_parameters())
@@ -54,19 +75,23 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                                  "float32 parameters (init(..., "
                                  "param_dtype=torch.float32))")
             p.grad = None
-        if n_microbatches > 1:
-            micro = [_split(x, n_microbatches) for x in batch.values()]
-            loss = 0.0
-            for i in range(n_microbatches):
-                mb = {k: parts[i] for k, parts in zip(batch, micro)}
-                mloss = loss_fn(model, mb)
-                mloss.backward()
-                loss = loss + mloss.detach()
-            loss = loss / n_microbatches
-        else:
-            loss = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
+        with sharding():
+            if n_microbatches > 1:
+                micro = [_split(x, n_microbatches) for x in batch.values()]
+                loss = 0.0
+                for i in range(n_microbatches):
+                    mb = local({k: parts[i]
+                                for k, parts in zip(batch, micro)})
+                    mloss = loss_fn(model, mb)
+                    mloss.backward()
+                    loss = loss + mloss.detach()
+                loss = loss / n_microbatches
+            else:
+                loss = loss_fn(model, local(batch))
+                loss.backward()
+                loss = loss.detach()
+        if mesh is not None:
+            loss = _data_mean(loss, mesh, dp)
         grads = {}
         for k, p in params.items():
             if p.grad is None:
@@ -84,6 +109,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return model, opt_state, metrics
 
     return train_step
+
+
+def _whole(batch: dict) -> dict:
+    return batch
+
+
+def _local_batch(mesh):
+    """batch -> this rank's rows of each input (``rules.batch_specs``)."""
+    def local(batch: dict) -> dict:
+        specs = rules.batch_specs(batch, mesh)
+        return {k: rules.local_chunk(x, mesh, specs[k].placements)
+                for k, x in batch.items()}
+    return local
+
+
+def _data_mean(loss: torch.Tensor, mesh, dp: tuple) -> torch.Tensor:
+    """The ranks' losses averaged over the data axes (the same on every
+    rank)."""
+    placements = [Partial("avg") if a in dp else Replicate()
+                  for a in mesh.mesh_dim_names]
+    return DTensor.from_local(loss, mesh, placements,
+                              run_check=False).full_tensor()
 
 
 def _split(x: torch.Tensor, n: int):

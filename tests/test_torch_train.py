@@ -361,7 +361,14 @@ def test_driver_improves_and_refuses_meshes(tmp_path, capsys):
                       str(tmp_path / "c"), "--device", "cpu"])
     assert len(log) == 12 and log[-1]["loss"] < log[0]["loss"]
     assert "(improved)" in capsys.readouterr().out
-    for flags in (["--mesh", "prod"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    assert not torch.distributed.is_initialized()   # one process: no mesh
+    for flags, err, match in (
+            (["--mesh", "prod"], ValueError, "needs 256 ranks"),
+            (["--mesh", "prod-multi"], ValueError, "needs 512 ranks"),
+            (["--model-parallel", "2"], AssertionError, None),
+            (["--mesh", "host", "--model-parallel", "2"], AssertionError,
+             None)):
+        with pytest.raises(err, match=match):
             train.main(flags + ["--ckpt-dir", str(tmp_path / "d"),
                                 "--device", "cpu"])
+        assert not torch.distributed.is_initialized()
