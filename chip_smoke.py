@@ -2,13 +2,14 @@
 """Smoke run of the PyTorch / CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed S] [--s1-only | --serve-only |
-                           --train-only | --mesh-only]
+                           --train-only | --mesh-only | --dryrun-only]
 
 ``--s1-only`` runs phases 1-2 and S1 alone (on the queries that phase 3
 draws, without the main path's q-errors) and prints no result lines;
 ``--serve-only`` runs phases 1-2 and L1-L3 alone and prints none either;
 ``--train-only`` runs phases 1-2 and T1 alone, ``--mesh-only`` phases 1-2
-and M1 alone, no result lines.
+and M1 alone, ``--dryrun-only`` phases 1-2 and R1 alone, no result
+lines.
 
 Phases, in order; each raises on failure:
 
@@ -297,6 +298,27 @@ M1. The mesh trainer (``launch.train.build_trainer(mesh=...)``: DTensor
     CUDA-event ms and host ms (the call without a sync: what DTensor
     dispatch adds) for both, launch calls a step and peak memory.
 
+R1. The dry runs, each in a process of its own (a fake process group,
+    apart from M1's NCCL group): ``launch.dryrun`` of ``R1_CELLS``
+    (qwen2-7b ``train_4k`` on the (16, 16) mesh, qwen3-moe-235b-a22b
+    ``decode_32k`` on the (2, 16, 16) one, rwkv6-1.6b ``long_500k`` on
+    (16, 16)) at full size on fake ``cuda`` tensors, the three at once,
+    then ``launch.dryrun_ce`` at 4,096,000 points a rank (rank 0's shard
+    built and estimated on the card), its warm-up estimate holding every
+    ``query_lanes``, ``slab_qualify`` and ``central_qualify`` call against
+    the plain version on the same inputs, at the CE's shapes (K = 12 over
+    the 4,096,000-row shard, chunk 512, budget 8192). Fatal: a process
+    failed, a record is missing or has a zero roofline term; the CE's
+    estimates not finite, no slab step, a path kernel not launched, a
+    kernel call apart from its plain version. Logs each cell's
+    trace seconds, terms, traced peak a rank, collective bytes and
+    attention routes, and the CE's wall time (CUDA events) and device
+    peak beside the card's name and power limit.
+
+X1. Beside R1's three traces: the five ``examples/torch_*.py`` at their
+    JAX twins' sizes on the card, each in its own process, all at once.
+    Fatal: an exit code.
+
 Each phase prints its seconds. Ends with a ``{"kernels": [...]}`` line
 (thirteen entries) and, last, the ``{"ok": true, ...}`` line. Exits
 non-zero, printing no result, without CUDA or without the
@@ -378,6 +400,15 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
 # there (still built and held against their plain versions)
 PATH_KERNELS = ("query_lanes", "slab_qualify", "central_qualify")
 EXACT_KERNELS = PATH_KERNELS + ("l2dist",)
+# R1: the dry-run cells (arch, shape, mesh) and the CE's points a rank; X1:
+# the examples; each phase's processes' time limit, seconds
+R1_CELLS = (("qwen2-7b", "train_4k", "single"),
+            ("qwen3-moe-235b-a22b", "decode_32k", "multi"),
+            ("rwkv6-1.6b", "long_500k", "single"))
+R1_CE_POINTS, R1_TIMEOUT = 4_096_000, 300
+X1_EXAMPLES = ("torch_quickstart", "torch_dynamic_updates",
+               "torch_distributed_estimate", "torch_serve_semantic",
+               "torch_train_tiny_lm")
 REPLACED = ("lsh_hash", "hamming_to_buckets", "l2dist_rows", "adc_rows",
             "adc_rows_q8")
 SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
@@ -534,12 +565,11 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
                            - ref.lsh_hash(qs, p.a, p.b, p.w)).abs().max()),
         ms=cuda_ms(torch, lambda: ops.lsh_hash(qs, p.a, p.b, p.w)),
         plain_ms=cuda_ms(torch, lambda: ref.lsh_hash(qs, p.a, p.b, p.w)),
-        bound=bound_ms(4 * (n * d + d * f + 2 * f + n * f), 2 * n * d * f),
-        library_ms=None)
+        bound=bound_ms(*ops.lsh_hash_work(n, d, f)), library_ms=None)
     nx = x.shape[0]
     k_ms = cuda_ms(torch, lambda: ops.lsh_hash(x, p.a, p.b, p.w))
     p_ms = cuda_ms(torch, lambda: ref.lsh_hash(x, p.a, p.b, p.w), iters=5)
-    b_ms = bound_ms(4 * (nx * (d + f) + d * f), 2 * nx * d * f)[0]
+    b_ms = bound_ms(*ops.lsh_hash_work(nx, d, f))[0]
     log(f"lsh_hash[corpus] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms (the main path hashes the corpus by project_raw and "
         "quantize, not by this kernel)")
@@ -568,9 +598,8 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
         plain_ms=cuda_ms(torch, lambda: ref.hamming_to_buckets(bc, qcodes, nb),
                          iters=5),
         # codes are read only for the live bucket rows (the rest are masked)
-        bound=bound_ms(4 * (int(nb.sum()) * k + NQ * nl * k + nl
-                            + NQ * nl * nbk),
-                       2 * NQ * int(nb.sum()) * k),
+        bound=bound_ms(*ops.hamming_to_buckets_work(NQ, nl, nbk, k,
+                                                    live=int(nb.sum()))),
         library_ms=cuda_ms(torch, lambda: torch.cdist(bcf, qt, p=0), iters=5))
     del got, want, bcf
     log(f"hamming_to_buckets{tuple(qcodes.shape[:2]) + (nbk,)}: exact")
@@ -595,8 +624,7 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
                 max_abs_err=float((got - want).abs().max()),
                 ms=cuda_ms(torch, lambda: ops.l2dist_rows(x, ids, qs_l)),
                 plain_ms=cuda_ms(torch, lambda: ref.l2dist_rows(x, ids, qs_l)),
-                bound=bound_ms(4 * (r * c + r * c * d + r * d + r * c),
-                               2 * r * c * d),
+                bound=bound_ms(*ops.l2dist_rows_work(r, c, d)),
                 library_ms=None)
             log(f"l2dist_rows{tuple(ids.shape) + (d,)}: kernel "
                 f"{kernel_device_us(torch, lambda: ops.l2dist_rows(x, ids, qs_l), 'l2dist_rows_kernel'):.2f}"
@@ -618,7 +646,7 @@ def phase_kernels(torch, corpus, qs, taus, index, cfg) -> dict:
                                  "differs from the general one")
         want = ref.l2dist(xl, qs)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        nbytes, flops = 4 * (nl * d + NQ * d + nl * NQ), 2 * nl * NQ * d
+        nbytes, flops = ops.l2dist_work(nl, NQ, d)
         r = dict(
             max_abs_err=float((got - want).abs().max()),
             ms=cuda_ms(torch, lambda: ops.l2dist(xl, qs)),
@@ -689,12 +717,7 @@ def phase_query_lanes(torch, index, qs, tag) -> dict:
         raise AssertionError(f"query_lanes[{tag}] differs from lsh_hash + "
                              "hamming_to_buckets")
     del want
-    pcodes, _ = ref.query_lanes(*args)
-    near = near_integer(torch, qs, p.a, p.b, p.w).reshape(qcodes.shape)
-    if ((qcodes != pcodes) & ~near).any() or not torch.equal(
-            ham, ref.hamming_to_buckets(bc, qcodes, nb)):
-        raise AssertionError(f"query_lanes[{tag}] differs from its plain "
-                             "version off the margin")
+    pcodes, near = hold_query_lanes(torch, tag, args, (qcodes, ham))
     live = int(nb.sum())
     res = dict(
         max_abs_err=float((qcodes - pcodes).abs().max()),
@@ -702,9 +725,7 @@ def phase_query_lanes(torch, index, qs, tag) -> dict:
         plain_ms=cuda_ms(torch, lambda: ref.query_lanes(*args), iters=5),
         # queries, a, b, w, the live bucket rows, n_buckets; codes and
         # distances out
-        bound=bound_ms(4 * (nq * d + d * f + 2 * f + live * k + nl
-                            + nq * nl * k + nq * nl * nbk),
-                       2 * nq * d * f + 2 * nq * live * k),
+        bound=bound_ms(*ops.query_lanes_work(nq, d, nl, nbk, k, live)),
         library_ms=None)
     # other worker counts (blocks that scan the live tiles and hash): 4, 8
     # and 32 per SM over the L tables beside the default 16, and one per
@@ -749,6 +770,87 @@ def phase_query_lanes(torch, index, qs, tag) -> dict:
             "hamming_to_buckets)" for per_sm, workers, ms in grids)
         + " (equal results)")
     return res
+
+
+def hold_query_lanes(torch, tag, args, got):
+    """``got`` = ``ops.query_lanes(*args)`` against its plain version on
+    the same inputs: codes may differ only where a hash value lies within
+    MARGIN of an integer; distances equal ``ref.hamming_to_buckets`` on the
+    kernel's codes. Returns the plain codes and the margin mask."""
+    from repro_torch.kernels import ref
+    qs, a, b, w, bc, nb = args
+    qcodes, ham = got
+    pcodes, _ = ref.query_lanes(*args)
+    near = near_integer(torch, qs, a, b, w).reshape(qcodes.shape)
+    if ((qcodes != pcodes) & ~near).any() or not torch.equal(
+            ham, ref.hamming_to_buckets(bc, qcodes, nb)):
+        raise AssertionError(f"query_lanes[{tag}] differs from its plain "
+                             "version off the margin")
+    return pcodes, near
+
+
+def exact_ties(torch, qual, ids, lanes, ok):
+    """Per row of candidates ``ids`` (R, c) of lanes ``lanes`` (R,), the
+    ones under ``ok`` whose d² (float64) lies within MARGIN τ² of τ²: where
+    the exact route's float32 sums may round the other way."""
+    d2 = ((qual.x[ids.long()].double() - qual.qs[lanes][:, None].double())
+          ** 2).sum(-1)
+    t2 = qual.tau_sq[lanes][:, None].double()
+    return (((d2 - t2).abs() <= MARGIN * t2) & ok).sum(1, dtype=torch.int32)
+
+
+def hold_slab(torch, tag, slab, qual, chunk, got):
+    """``got`` = ``ops.slab_qualify(*slab, qual, chunk)`` against its
+    plain version on the same inputs: sample counts equal; hard sums apart
+    only by candidates whose d² lies within MARGIN τ² of τ² (exact-route
+    lanes), banded sums within rtol 1e-6. Returns the plain result, the
+    candidate mask ``ok``, the exact-route lanes and the ties a lane."""
+    from repro_torch.kernels import ref
+    plain = ref.slab_qualify(*slab, qual, chunk)
+    ids, ok = ref.slab_candidates(*slab, chunk)
+    k, lanes, prings = slab[0], slab[2], slab[5]
+    exact = (k.clamp_max(prings.shape[1]) <= qual.exact_rings) | \
+        (qual.codes is None)
+    if not torch.equal(got[1], plain[1]):
+        raise AssertionError(f"slab_qualify[{tag}]: sample counts differ "
+                             "from the plain version")
+    ties = torch.zeros_like(got[1])
+    if exact.any():
+        ex = torch.nonzero(exact).squeeze(1)
+        ties[ex] = exact_ties(torch, qual, ids[ex], lanes[ex], ok[ex])
+    if qual.resid is not None:
+        torch.testing.assert_close(got[0], plain[0], rtol=1e-6, atol=1e-6)
+    elif ((got[0] - plain[0]).abs() > ties).any():
+        raise AssertionError(f"slab_qualify[{tag}]: weight sums differ from "
+                             "the plain version")
+    return plain, ok, exact, ties
+
+
+def hold_central(torch, tag, args, got):
+    """``got`` = ``ops.central_qualify(*args)`` against its plain version
+    on the same inputs: seen and total equal; on the exact route the sums
+    apart only by candidates whose d² lies within MARGIN τ² of τ², banded
+    sums within rtol 1e-6, the other ADC routes' sums equal. Returns the
+    plain result and the ties a lane."""
+    from repro_torch.kernels import ref
+    qcodes, tid, bc, nb, starts, sizes, order, qual, exact, budget = args
+    plain = ref.central_qualify(*args)
+    for i, what in ((1, "seen"), (2, "total")):
+        if not torch.equal(got[i], plain[i]):
+            raise AssertionError(f"central_qualify[{tag}]: {what} differs "
+                                 "from the plain version")
+    ties = torch.zeros_like(got[1])
+    if exact:
+        ids, valid, _, _ = ref.central_ids(qcodes, tid, bc, nb, starts,
+                                           sizes, order, budget)
+        lanes = torch.arange(ids.shape[0], device=ids.device)
+        ties = exact_ties(torch, qual, ids, lanes, valid)
+    if not exact and qual.resid is not None:
+        torch.testing.assert_close(got[0], plain[0], rtol=1e-6, atol=1e-6)
+    elif ((got[0] - plain[0]).abs() > ties).any():
+        raise AssertionError(f"central_qualify[{tag}]: sums differ from the "
+                             "plain version")
+    return plain, ties
 
 
 def every_row_live(torch, index):
@@ -1013,27 +1115,13 @@ def phase_slab(torch, tag, state, qs, taus, cfg, seed, step=False,
     banded = qual.resid is not None
     got = ops.slab_qualify(*slab, qual, chunk)
     before = ref.slab_qualify(*slab, qual, chunk, rows=ops)
-    plain = ref.slab_qualify(*slab, qual, chunk)
-    ids, ok = ref.slab_candidates(*slab, chunk)
+    plain, ok, exact, ties = hold_slab(torch, tag, slab, qual, chunk, got)
     k, _, lanes = slab[:3]
-    kc = k.clamp_max(cfg.n_funcs)
-    exact = (kc <= qual.exact_rings) | (qual.codes is None)
-    if not (torch.equal(got[1], before[1]) and torch.equal(got[1], plain[1])):
+    if not torch.equal(got[1], before[1]):
         raise AssertionError(f"slab_qualify[{tag}]: sample counts differ")
-    ties = torch.zeros_like(got[1])
-    if exact.any():
-        ex = torch.nonzero(exact).squeeze(1)
-        d2 = ((qual.x[ids[ex].long()].double()
-               - qual.qs[lanes[ex]][:, None].double()) ** 2).sum(-1)
-        t2 = qual.tau_sq[lanes[ex]][:, None].double()
-        ties[ex] = (((d2 - t2).abs() <= MARGIN * t2) & ok[ex]).sum(
-            1, dtype=torch.int32)
     if banded:
-        for want in (before, plain):
-            torch.testing.assert_close(got[0], want[0], rtol=1e-6,
-                                       atol=1e-6)
-    elif not torch.equal(got[0], before[0]) or \
-            ((got[0] - plain[0]).abs() > ties).any():
+        torch.testing.assert_close(got[0], before[0], rtol=1e-6, atol=1e-6)
+    elif not torch.equal(got[0], before[0]):
         raise AssertionError(f"slab_qualify[{tag}]: weight sums differ")
     n_ok = ok.sum(1)
     d = qual.x.shape[1]
@@ -1041,15 +1129,11 @@ def phase_slab(torch, tag, state, qs, taus, cfg, seed, step=False,
         qual.luts[0].numel() * qual.luts.element_size()
     cb = 0 if qual.codes is None else \
         qual.codes.shape[1] + (4 if banded else 0)
-    # per drawn candidate: its row (or code row and residual), its starts
-    # and order entries and one 32-byte sector of the cumsum around the
-    # draw; per lane: its query row or LUT, state, constants and outputs
-    per = torch.where(exact, 4 * d, cb) + 4 + 4 + 32
-    nbytes = int((n_ok * per).sum()) + int(torch.where(
-        exact, 4 * d, lut_b).sum()) + k.numel() * (4 + 4 + 8 + 8 + 48 + 12
-                                                   + 12 + 8)
+    # the candidates drawn, each qualified exactly or by ADC
     m = 0 if qual.codes is None else qual.luts.shape[1]
-    flops = int((n_ok * torch.where(exact, 3 * d, m)).sum())
+    nbytes, flops = ops.slab_qualify_work(
+        k.numel(), d, int((n_ok * exact).sum()), int(exact.sum()),
+        int((n_ok * ~exact).sum()), int((~exact).sum()), cb, lut_b, m)
     res = dict(
         max_abs_err=float((got[0] - plain[0]).abs().max()),
         ms=cuda_ms(torch, lambda: ops.slab_qualify(*slab, qual, chunk)),
@@ -1145,23 +1229,13 @@ def phase_central(torch, tag, state, qs, taus, cfg, exact=None) -> dict:
 
     got = ops.central_qualify(*args)
     old = before()
-    plain = ref.central_qualify(*args)
+    plain, ties = hold_central(torch, tag, args, got)
     for i, what in ((1, "seen"), (2, "total")):
-        if not (torch.equal(got[i], old[i]) and torch.equal(got[i], plain[i])):
+        if not torch.equal(got[i], old[i]):
             raise AssertionError(f"central_qualify[{tag}]: {what} differs")
-    ties = torch.zeros_like(got[1])
-    if exact:
-        ids, valid = old[3:]
-        d2 = ((qual.x[ids.long()].double() - qual.qs[:, None].double())
-              ** 2).sum(-1)
-        t2 = qual.tau_sq[:, None].double()
-        ties = (((d2 - t2).abs() <= MARGIN * t2) & valid).sum(
-            1, dtype=torch.int32)
     if banded:
-        for want in (old, plain):
-            torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
-    elif not torch.equal(got[0], old[0]) or \
-            ((got[0] - plain[0]).abs() > ties).any():
+        torch.testing.assert_close(got[0], old[0], rtol=1e-6, atol=1e-6)
+    elif not torch.equal(got[0], old[0]):
         raise AssertionError(f"central_qualify[{tag}]: sums differ")
     est, est_old = scaled(*got), scaled(*old[:3])
     if banded:
@@ -1183,17 +1257,12 @@ def phase_central(torch, tag, state, qs, taus, cfg, exact=None) -> dict:
     lut_b = 0 if exact else qual.luts[0].numel() * qual.luts.element_size()
     m = 0 if exact else qual.luts.shape[1]
     row_b = 4 * d if exact else qual.codes.shape[1] + (4 if banded else 0)
-    # per lane: its code and table, the matched bucket's code, start and
-    # size, its query row or LUT, tau^2 or threshold (and lane_q), the
-    # outputs; per slot of a distinct bucket: its order entry and row
-    per_lane = 4 * k + 8 + 4 * k + 8 + (4 * d if exact else lut_b + 4) + 4 \
-        + 12
     res = dict(
         max_abs_err=float((got[0] - plain[0]).abs().max()),
         ms=cuda_ms(torch, lambda: ops.central_qualify(*args)),
         plain_ms=cuda_ms(torch, lambda: ref.central_qualify(*args), iters=5),
-        bound=bound_ms(nql * per_lane + n_u * (4 + row_b),
-                       n * (3 * d if exact else m)),
+        bound=bound_ms(*ops.central_qualify_work(nql, k, d, exact, lut_b, m,
+                                                 row_b, n, n_u)),
         library_ms=None)
     before_ms = cuda_ms(torch, before, iters=5)
     dev_us = kernel_device_us(torch, lambda: ops.central_qualify(*args),
@@ -1558,9 +1627,9 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
             ms=cuda_ms(torch, lambda: fn(codes, lut_stack)),
             plain_ms=cuda_ms(torch, lambda: plain_fn(codes, lut_stack),
                              iters=3),
-            bound=bound_ms(nc * m + lut_stack.numel()
-                           * lut_stack.element_size() + nq * nc * out_b,
-                           nq * nc * m),
+            bound=bound_ms(*ops.adc_batch_work(
+                nq, nc, codes.shape[1], m,
+                lut_stack.numel() * lut_stack.element_size(), out_b)),
             library_ms=cuda_ms(torch, lib, iters=5))
         # the kernel's other ceiling: one shared-memory word per float
         # lookup, per four uint8 ones, at 32 words a clock on each SM
@@ -1610,9 +1679,9 @@ def phase_adc_kernels(torch, sstate, qs, taus) -> dict:
                                                      lane_q)),
             # ids, the gathered code rows, the lanes' distinct LUTs, lane_q
             # and the output
-            bound=bound_ms(nl * c * (4 + m + 4) + nl * 4
-                           + int(lane_q.unique().numel()) * m * kc * esz,
-                           nl * c * m),
+            bound=bound_ms(*ops.adc_rows_work(
+                nl, c, cdes.shape[1], m, m * kc * esz,
+                int(lane_q.unique().numel()))),
             library_ms=cuda_ms(torch, lib))
         log(f"{name}({nl} lanes x {c}): kernel "
             f"{kernel_device_us(torch, lambda: fn(cdes, ids, lut_stack, lane_q), 'adc_rows_kernel'):.2f}"
@@ -2018,7 +2087,6 @@ def phase_cache_insert(torch, seed) -> dict:
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(seed + 40)
     nl, k = CFG_KW["n_tables"], CFG_KW["n_funcs"]
-    entry = 4 * nl * k + 16 + 4 + 4 * nl + 8 + 4 * nl + 4 + 4 + 2
     res, err = None, 0.0
     for s, n, full, match in ((SERVE_CACHE, SERVE_BATCH, False, True),
                               (SERVE_CACHE, SERVE_BATCH, True, True),
@@ -2065,16 +2133,10 @@ def phase_cache_insert(torch, seed) -> dict:
                 & (cache.tau_key[i:i + 4096, None] == tk[None])).any(1)
         code_hit = (code_hit & cache.valid & tau_hit) | changed
         cleared = int((cache.ref & ~got_c.ref).sum())
-        parts = {
-            "valid, tau_key": 5 * s,
-            "codes": 4 * nl * k * int(tau_hit.sum()),
-            "qhash": 16 * int(code_hit.sum()) if match else 0,
-            "ref swept": cleared + int(changed.sum()),
-            "lanes": int(act.sum()) * sum(
-                t[0].numel() * t.element_size() for t in lanes[:-1]
-                if t.dim()) + n + 8,
-            "written": int(changed.sum()) * entry + cleared + 8}
-        nbytes = sum(parts.values())
+        nbytes = ops.cache_insert_work(
+            s, n, nl, k, match, active=int(act.sum()),
+            tau_hits=int(tau_hit.sum()), code_hits=int(code_hit.sum()),
+            changed=int(changed.sum()), cleared=cleared)[0]
         iters = 20
         fresh = [C.EstimateCache(*(t.clone() for t in cache))
                  for _ in range(2 * iters + 1)]
@@ -2102,7 +2164,8 @@ def phase_cache_insert(torch, seed) -> dict:
             f"{dev_us:.2f} us; plain loop on the card {plain_ms:.3f} ms, "
             f"{host} launch calls ({devk} device kernels); bound "
             f"{b[0] * 1e3:.4f} us ({b[1]}, {nbytes} bytes: "
-            f"{json.dumps(parts)})")
+            f"{int(tau_hit.sum())} codes read, {int(code_hit.sum())} "
+            "fingerprints)")
         del fresh, plain
         if res is None:
             res = dict(ms=ms, plain_ms=plain_ms, bound=b, library_ms=None)
@@ -2358,8 +2421,8 @@ def phase_neighbors(torch, state, cfg, seed):
 
     # bytes: both tables written once, the codes read once; operations:
     # the compares the live rows need
-    nbytes = nl * cap * cap + 4 * nl * cap * k
-    ops_n = sum(n * n * k for n in nbs)
+    work = [ops.neighbor_dists_work(cap, k, n) for n in nbs]
+    nbytes, ops_n = sum(w[0] for w in work), sum(w[1] for w in work)
     tb, ti = nbytes / HBM_BYTES_S * 1e3, ops_n / INT32_OP_S * 1e3
     res = dict(max_abs_err=float(err), ms=cuda_ms(torch, build_both),
                plain_ms=cuda_ms(torch, plain_both, iters=3),
@@ -2380,10 +2443,10 @@ def phase_neighbors(torch, state, cfg, seed):
     upd_plain_ms = cuda_ms(torch, plain_update_both, iters=3)
     # bytes: both strips of each table written once, its live codes read
     # once; operations: the compares of the new rows against the live ones
-    upd_tb = sum(r * (2 * cap2 - r) + 4 * n2 * k
-                 for r, n2 in zip(new_rows, nbs2)) / HBM_BYTES_S * 1e3
-    upd_ti = sum(r * n2 * k for r, n2 in zip(new_rows, nbs2)) \
-        / INT32_OP_S * 1e3
+    upd = [ops.neighbor_dists_work(cap2, k, n2, n1, n2)
+           for n1, n2 in zip(nbs, nbs2)]
+    upd_tb = sum(w[0] for w in upd) / HBM_BYTES_S * 1e3
+    upd_ti = sum(w[1] for w in upd) / INT32_OP_S * 1e3
     dev_us = kernel_device_us(torch, build_both, "neighbor_dists_kernel")
     upd_us = kernel_device_us(torch, update_both, "neighbor_dists_kernel")
     edge = []
@@ -2487,8 +2550,7 @@ def phase_baselines(torch, state, x, cfg, seed):
                                  iters=3),
                 # ids, the distinct drawn rows, the queries, the distances
                 # out; a multiply-add a coordinate
-                bound=bound_ms(4 * (r * n_s + n_rows * d + r * d + r * n_s),
-                               2 * r * n_s * d),
+                bound=bound_ms(*ops.l2dist_rows_work(r, n_s, d, n_rows)),
                 library_ms=None)
     del got, want
     draw_ms = cuda_ms(torch, lambda: baselines.draw_sample_ids(
@@ -2519,7 +2581,7 @@ def phase_baselines(torch, state, x, cfg, seed):
         f"{rows_ms:.3f} ms a batch), MLP {t_m * 1e3 / et.shape[0]:.4f}; "
         f"MLP training {t_fit:.3f} s ({ntr} queries x {nt}, 400 epochs)")
     log(f"B1 sampling launches: {json.dumps(samp_counts)}")
-    per_draw = bound_ms(4 * (r * n_s + r * n_s * d + r * d + r * n_s), 0)[0]
+    per_draw = bound_ms(ops.l2dist_rows_work(r, n_s, d)[0], 0)[0]
     log(f"l2dist_rows[B1, ({r}, {n_s}, {d})]: kernel {rows['ms']:.4f} ms on "
         f"the ids as drawn ({ascending:.6f} of neighbours non-decreasing; "
         f"a sort of each row would take {sort_ms:.4f} ms), "
@@ -2613,8 +2675,7 @@ def phase_corpora(torch, cfg, seed, dev):
             ds.x, ds.queries), iters=5)
         lib_ms = cuda_ms(torch, lambda: torch.cdist(ds.x, ds.queries) ** 2,
                          iters=3)
-        nb_, fl = 4 * (ds.x.numel() + NQ * d + ds.x.shape[0] * NQ), \
-            2 * ds.x.shape[0] * NQ * d
+        nb_, fl = ops.l2dist_work(ds.x.shape[0], NQ, d)
         ceiling = fp32_ceiling_ms(torch, fl)
         taus = ds.taus[torch.arange(NQ, device=dev),
                        torch.arange(NQ, device=dev) % ds.taus.shape[1]]
@@ -4278,6 +4339,171 @@ def m1_equal(torch, tag, plain, popt, sharded, sopt, when):
                          f"the plain trainer's {when}: {bad[:4]}")
 
 
+def _run_all(cmds: dict, timeout: float) -> dict:
+    """Run each command of ``cmds`` (name -> argv) as a subprocess, all at
+    once, with ``src`` on the path; -> name -> (exit code, output,
+    seconds). Kills whatever is left after ``timeout`` seconds."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT)
+             for k, c in cmds.items()}
+    out = {}
+    try:
+        for k, p in procs.items():
+            left = max(1.0, timeout - (time.perf_counter() - t0))
+            try:
+                text = p.communicate(timeout=left)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text = p.communicate()[0] + f"\n(killed after {timeout} s)"
+            out[k] = (p.returncode, text, time.perf_counter() - t0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    return out
+
+
+def _tail(text: str, n: int = 30) -> str:
+    return "\n".join(text.strip().splitlines()[-n:])
+
+
+def ce_held(argv) -> int:
+    """R1's CE: ``launch.dryrun_ce.main(argv)`` with every
+    ``query_lanes``, ``slab_qualify`` and ``central_qualify`` call of its
+    first ``estimate_sharded`` (the warm-up, before the timed and the
+    counted runs) held against its plain version on the same inputs, at
+    the CE's own shapes (``hold_*``). Fatal: a difference, or a kernel the
+    warm-up never called. Run as ``python -c "import chip_smoke ..."``."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun_ce
+    held = dict.fromkeys(PATH_KERNELS, 0)
+    ties = dict.fromkeys(PATH_KERNELS, 0)
+    err = dict.fromkeys(PATH_KERNELS, 0.0)
+    calls = [0]
+
+    def hold(name, a, got):
+        if name == "query_lanes":
+            pcodes, near = hold_query_lanes(torch, "CE", a, got)
+            t, e = int(near.sum()), float((got[0] - pcodes).abs().max())
+        elif name == "slab_qualify":
+            plain, _, _, tl = hold_slab(torch, "CE", a[:11], a[11], a[12],
+                                        got)
+            t, e = int(tl.sum()), float((got[0] - plain[0]).abs().max())
+        else:
+            plain, tl = hold_central(torch, "CE", a, got)
+            t, e = int(tl.sum()), float((got[0] - plain[0]).abs().max())
+        held[name] += 1
+        ties[name] += t
+        err[name] = max(err[name], e)
+
+    def wrap(name, kernel):
+        def run(*a):
+            got = kernel(*a)
+            if calls[0] == 1:
+                hold(name, a, got)
+            return got
+        return run
+
+    for name in PATH_KERNELS:
+        setattr(ops, name, wrap(name, getattr(ops, name)))
+    estimate = D.estimate_sharded
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return estimate(*a, **kw)
+
+    D.estimate_sharded = counted
+    dryrun_ce.main(argv)
+    log("R1 CE held against the plain versions in its warm-up estimate: "
+        + ", ".join(f"{k} {held[k]} calls (max |diff| {err[k]}, {ties[k]} "
+                    + ("hash values within MARGIN of an integer"
+                       if k == "query_lanes" else "d^2 within MARGIN tau^2 "
+                       "of tau^2") + ")" for k in PATH_KERNELS)
+        + f"; MARGIN = {MARGIN}")
+    if min(held.values()) == 0:
+        raise AssertionError(f"R1 CE: a kernel was never held: {held}")
+    return 0
+
+
+def phase_dryrun(examples: bool = True):
+    """R1: ``launch.dryrun`` of the ``R1_CELLS`` (each in its own process,
+    the three at once: a fresh fake process group each, apart from M1's
+    NCCL group), then ``launch.dryrun_ce`` at 4,096,000 points a rank on
+    the card. Fatal: a process failed, a record is missing, or a roofline
+    term of a cell is zero (every cell here computes, moves bytes and
+    gathers); the CE's estimates not finite, a slab step never run, a
+    path kernel never launched, or a kernel call of its warm-up estimate
+    apart from its plain version (``ce_held``). Logs trace seconds,
+    traced peak a rank, collective bytes, attention routes, and the CE's
+    wall time and device peak. With ``examples``, X1 runs beside the three traces: the five
+    ``examples/torch_*.py`` on the card at their JAX twins' sizes (their
+    defaults), each in its own process; fatal: an exit code (each asserts
+    what its twin prints)."""
+    out = ROOT / "build" / "dryrun"
+    cmds = {f"R1 {a} {s} {m}": [sys.executable, "-m",
+                                "repro_torch.launch.dryrun", "--arch", a,
+                                "--shape", s, "--mesh", m, "--out-dir",
+                                str(out)]
+            for a, s, m in R1_CELLS}
+    if examples:
+        cmds.update({f"X1 {n}": [sys.executable,
+                                 str(ROOT / "examples" / f"{n}.py")]
+                     for n in X1_EXAMPLES})
+    runs = _run_all(cmds, R1_TIMEOUT)
+    runs.update(_run_all({"R1 ce": [
+        sys.executable, "-c",
+        "import sys, chip_smoke; sys.exit(chip_smoke.ce_held(sys.argv[1:]))",
+        "--n-per-shard", str(R1_CE_POINTS), "--out-dir", str(out)]},
+        R1_TIMEOUT))
+    for k, (rc, text, secs) in runs.items():
+        log(f"{k}: exit {rc} after {secs:.1f} s\n{_tail(text, 12)}")
+    failed = [k for k, (rc, _, _) in runs.items() if rc != 0]
+    if failed:
+        raise AssertionError(f"failed: {failed}:\n" + "\n".join(
+            _tail(runs[k][1]) for k in failed))
+    for a, s, m in R1_CELLS:
+        rec = json.loads((out / f"{a}__{s}__{m}.json").read_text())
+        r = rec["roofline"]
+        log(f"R1 {a} {s} {m}: trace {rec['trace_s']} s, terms compute "
+            f"{r['t_compute_s']:.6g} s, memory {r['t_memory_s']:.6g} s, "
+            f"collective {r['t_collective_s']:.6g} s ({r['dominant']}), "
+            f"useful {r['useful_ratio']:.4f}, FLOPs {r['hlo_flops']:.6g}, "
+            f"bytes {r['hlo_bytes']:.6g}, peak (traced) "
+            f"{rec['memory']['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB a "
+            f"rank, arguments "
+            f"{rec['memory']['argument_size_in_bytes'] / 2 ** 30:.3f} GiB, "
+            f"collectives {json.dumps(rec['collectives'])}, attention "
+            f"{rec['attention_route']}, profile {rec['profile']}")
+        if min(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]) <= 0:
+            raise AssertionError(f"R1 {a} {s} {m}: a roofline term is 0: "
+                                 f"{r}")
+    ce = json.loads((out / "ce_estimator__single__local.json").read_text())
+    r = ce["roofline"]
+    log(f"R1 CE ({ce['shape']}, {ce['chips']} ranks, {ce['mode']}): wall "
+        f"{ce['wall_ms']:.3f} ms (CUDA events), device peak "
+        f"{ce['device_peak_bytes'] / 2 ** 30:.3f} GiB, peak (traced) "
+        f"{ce['memory']['peak_memory_in_bytes'] / 2 ** 30:.3f} GiB, slab "
+        f"steps {ce['slab_steps']}, terms compute {r['t_compute_s']:.6g} s, "
+        f"memory {r['t_memory_s']:.6g} s, collective "
+        f"{r['t_collective_s']:.6g} s ({r['dominant']}), cost "
+        f"{json.dumps(ce['cost_raw'])}, launches {ce['launches']}, "
+        f"collectives {json.dumps(ce['collectives'])}; {smi_line()}")
+    if not ce["estimates_finite"] or ce["slab_steps"] < 1:
+        raise AssertionError(f"R1 CE: estimates finite "
+                             f"{ce['estimates_finite']}, slab steps "
+                             f"{ce['slab_steps']}")
+    if any(ce["launches"].get(k, 0) == 0 for k in PATH_KERNELS) or \
+            min(r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]) <= 0:
+        raise AssertionError(f"R1 CE: launches {ce['launches']}, roofline "
+                             f"{r}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4289,6 +4515,8 @@ def main(argv=None) -> int:
                     help="phases 1-2 and T1 alone; no result lines")
     ap.add_argument("--mesh-only", action="store_true",
                     help="phases 1-2 and M1 alone; no result lines")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="phases 1-2 and R1 alone; no result lines")
     args = ap.parse_args(argv)
     import torch
     name = phase_device(torch)
@@ -4317,6 +4545,10 @@ def main(argv=None) -> int:
     if args.mesh_only:
         phase_mesh_training(torch, args.seed)
         lap("M1 mesh trainer")
+        return 0
+    if args.dryrun_only:
+        phase_dryrun(examples=False)
+        lap("R1 dry runs")
         return 0
     if args.serve_only:
         phase_lm_serving(torch, args.seed)
@@ -4453,6 +4685,8 @@ def main(argv=None) -> int:
     lap("T1 training")
     phase_mesh_training(torch, args.seed)
     lap("M1 mesh trainer")
+    phase_dryrun()
+    lap("R1 dry runs, X1 examples")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     # launches: the exact kernels' from the exact main path, the ADC
     # kernels' from the PQ path's configs (adc_batch_q8 has no path in the

@@ -6,6 +6,16 @@ fallback. Each wrapper checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch reported an error, and adds one to its
 count in :data:`LAUNCHES` — there and nowhere else.
+
+Each wrapper also adds the work of its call to :data:`WORK`, on either
+route (the CPU tests see the same counts as the card): the bytes the
+function must move (each input read once, each output written once) and
+the operations it does, by the ``*_work`` formulas below, the ones
+``chip_smoke.py`` bounds each kernel's time by. Where the work depends on
+the data (the live buckets, the candidates a slab draws), the formulas take
+the data's counts, and the wrappers pass the most the call's shapes allow:
+reading the counts would stall the stream. The kernels launch through
+pointers, so no dispatch mode sees them: the dry runs read their work here.
 """
 from __future__ import annotations
 
@@ -30,6 +40,156 @@ LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# per wrapper, its calls on either route and their summed work: "bytes"
+# moved and "flops", the operations (integer compares for the Hamming
+# distances and neighbor_dists)
+WORK: dict[str, dict[str, int]] = {name: {"calls": 0, "bytes": 0, "flops": 0}
+                                   for name in LAUNCHES}
+
+
+def reset_work() -> None:
+    for w in WORK.values():
+        w["calls"] = w["bytes"] = w["flops"] = 0
+
+
+def _work(name: str, nbytes: int, flops: int) -> None:
+    WORK[name]["calls"] += 1
+    WORK[name]["bytes"] += int(nbytes)
+    WORK[name]["flops"] += int(flops)
+
+
+# ---- the work of a call: (bytes, operations) --------------------------------
+
+def lsh_hash_work(n: int, d: int, f: int) -> tuple[int, int]:
+    """x (N, d), a (d, F), b and w (F,) in; codes (N, F) out; a
+    multiply-add a coordinate and function."""
+    return 4 * (n * d + d * f + 2 * f + n * f), 2 * n * d * f
+
+
+def hamming_to_buckets_work(nq: int, nl: int, nb: int, k: int,
+                            live: int | None = None) -> tuple[int, int]:
+    """The ``live`` bucket rows' codes (every row: L·B), the query codes
+    and n_buckets in; (Q, L, B) distances out; a compare and an add a
+    function of each live pair."""
+    live = nl * nb if live is None else live
+    return (4 * (live * k + nq * nl * k + nl + nq * nl * nb),
+            2 * nq * live * k)
+
+
+def query_lanes_work(nq: int, d: int, nl: int, nb: int, k: int,
+                     live: int | None = None) -> tuple[int, int]:
+    """:func:`lsh_hash_work` of the queries and
+    :func:`hamming_to_buckets_work` against their codes, the codes
+    written once."""
+    f = nl * k
+    live = nl * nb if live is None else live
+    return (4 * (nq * d + d * f + 2 * f + live * k + nl + nq * nl * k
+                 + nq * nl * nb),
+            2 * nq * d * f + 2 * nq * live * k)
+
+
+def l2dist_work(n: int, nq: int, d: int) -> tuple[int, int]:
+    """x (N, d) and q (Q, d) in, (N, Q) out; a multiply-add a
+    coordinate of each pair."""
+    return 4 * (n * d + nq * d + n * nq), 2 * n * nq * d
+
+
+def l2dist_rows_work(r: int, c: int, d: int,
+                     rows: int | None = None) -> tuple[int, int]:
+    """ids (R, c), the ``rows`` distinct drawn rows (every draw: R·c),
+    the queries (R, d) in; (R, c) out."""
+    rows = r * c if rows is None else rows
+    return 4 * (r * c + rows * d + r * d + r * c), 2 * r * c * d
+
+
+def adc_batch_work(nq: int, n: int, cb: int, m: int, lut_bytes: int,
+                   out_bytes: int) -> tuple[int, int]:
+    """codes (N, cb bytes), the Q LUTs (``lut_bytes`` in all) in; (Q, N)
+    sums of ``out_bytes`` out; a lookup-add a subspace of each pair."""
+    return n * cb + lut_bytes + nq * n * out_bytes, nq * n * m
+
+
+def adc_rows_work(r: int, c: int, cb: int, m: int, lut_bytes: int,
+                  luts: int | None = None) -> tuple[int, int]:
+    """ids (R, c), the gathered code rows, the ``luts`` distinct LUTs the
+    lanes read (of ``lut_bytes`` each; at most one a lane), lane_q and the
+    (R, c) sums out."""
+    luts = r if luts is None else luts
+    return r * c * (4 + cb + 4) + r * 4 + luts * lut_bytes, r * c * m
+
+
+def slab_qualify_work(na: int, d: int, exact_rows: int, exact_lanes: int,
+                      adc_rows: int = 0, adc_lanes: int = 0, cb: int = 0,
+                      lut_bytes: int = 0, m: int = 0) -> tuple[int, int]:
+    """A slab step of ``na`` lanes: a candidate qualified exactly reads
+    its row, one by ADC its code row (``cb`` bytes, the residual
+    included), and each its starts and order entries and one 32-byte
+    sector of the cumsum around the draw; a lane reads its query row or
+    LUT, and its state, constants and outputs (104 bytes). Operations: a
+    subtract and a multiply-add a coordinate, or a lookup-add a
+    subspace."""
+    nbytes = (exact_rows * (4 * d + 40) + adc_rows * (cb + 40)
+              + exact_lanes * 4 * d + adc_lanes * lut_bytes + na * 104)
+    return nbytes, exact_rows * 3 * d + adc_rows * m
+
+
+def central_qualify_work(nql: int, k: int, d: int, exact: bool,
+                         lut_bytes: int, m: int, row_bytes: int,
+                         seen: int, distinct: int | None = None
+                         ) -> tuple[int, int]:
+    """Alg. 3 for ``nql`` lanes: per lane its code and table, the matched
+    bucket's code, start and size, its query row (or LUT and threshold),
+    τ² and the outputs; per slot of a distinct (table, bucket) its order
+    entry and row (``row_bytes``); ``seen`` candidates qualified in all
+    (``distinct`` of them in distinct buckets: all by default)."""
+    distinct = seen if distinct is None else distinct
+    per_lane = (4 * k + 8 + 4 * k + 8 + (4 * d if exact else lut_bytes + 4)
+                + 4 + 12)
+    return (nql * per_lane + distinct * (4 + row_bytes),
+            seen * (3 * d if exact else m))
+
+
+def cache_insert_work(s: int, n: int, nl: int, k: int, match_qhash: bool,
+                      active: int | None = None,
+                      tau_hits: int | None = None,
+                      code_hits: int | None = None,
+                      changed: int | None = None,
+                      cleared: int | None = None) -> tuple[int, int]:
+    """The CLOCK insert of ``n`` lanes (``active`` of them) into S
+    entries: valid and tau_key of every entry; the codes of the
+    ``tau_hits`` entries whose tau key is an active lane's, the
+    fingerprints of the ``code_hits`` whose codes match too (with
+    ``match_qhash``); ref up to each victim (``cleared`` bits and the
+    ``changed`` entries); the active lanes; each written entry and
+    cleared bit. The defaults are the most the shapes allow."""
+    active = n if active is None else active
+    tau_hits = s if tau_hits is None else tau_hits
+    code_hits = s if code_hits is None else code_hits
+    changed = min(n, s) if changed is None else changed
+    cleared = s if cleared is None else cleared
+    entry = 4 * nl * k + 8 * nl + 38
+    lane = 4 * nl * k + 8 * nl + 28
+    nbytes = (5 * s + 4 * nl * k * tau_hits
+              + (16 * code_hits if match_qhash else 0)
+              + cleared + changed
+              + active * lane + n + 8
+              + changed * entry + cleared + 8)
+    return nbytes, 0
+
+
+def neighbor_dists_work(b: int, k: int, n_valid: int, r0: int = 0,
+                        r1: int | None = None) -> tuple[int, int]:
+    """The whole (B, B) table: every entry written once, every code read
+    once, the live pairs' compares; a strip of rows [r0, r1): its entries
+    in the row and column strips, the live codes, the new rows' compares
+    against the live ones."""
+    r1 = b if r1 is None else r1
+    if r0 == 0 and r1 == b:
+        return b * b + 4 * b * k, n_valid * n_valid * k
+    r = r1 - r0
+    return r * (2 * b - r) + 4 * n_valid * k, r * n_valid * k
 
 
 # a block's shared memory on the H100: 227 KB
@@ -79,6 +239,7 @@ def lsh_hash(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
     """x (N, d), a (d, F), b (F,), w (F,) float32 → codes (N, F) int32,
     ``floor((x @ a + b*w) / w)``."""
+    _work("lsh_hash", *lsh_hash_work(x.shape[0], x.shape[-1], a.shape[-1]))
     if _on_cpu(x, a, b, w):
         return ref.lsh_hash(x, a, b, w)
     for t, nm, nd in ((x, "x", 2), (a, "a", 2), (b, "b", 1), (w, "w", 1)):
@@ -103,6 +264,8 @@ def hamming_to_buckets(bucket_codes: torch.Tensor, qcodes: torch.Tensor,
                        n_buckets: torch.Tensor) -> torch.Tensor:
     """bucket_codes (L, B, K), qcodes (Q, L, K), n_buckets (L,) int32 →
     (Q, L, B) int32 Hamming distances; rows ``b >= n_buckets[l]`` get K+1."""
+    _work("hamming_to_buckets", *hamming_to_buckets_work(
+        qcodes.shape[0], *bucket_codes.shape))
     if _on_cpu(bucket_codes, qcodes, n_buckets):
         return ref.hamming_to_buckets(bucket_codes, qcodes, n_buckets)
     _check(bucket_codes, "bucket_codes", torch.int32, 3)
@@ -151,6 +314,7 @@ def query_lanes(qs: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     rounded up to the cluster of 4; 0: 16 per SM over the L tables) is how
     many of them scan the live tiles and hash. The results are the same
     for every value."""
+    _work("query_lanes", *query_lanes_work(*qs.shape, *bucket_codes.shape))
     if _on_cpu(qs, a, b, w, bucket_codes, n_buckets):
         return ref.query_lanes(qs, a, b, w, bucket_codes, n_buckets)
     for t, nm, nd in ((qs, "qs", 2), (a, "a", 2), (b, "b", 1), (w, "w", 1)):
@@ -259,6 +423,7 @@ def l2dist(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """x (N, d), q (Q, d) float32 → (N, Q) squared distances Σ(x−q)²,
     through the tiled kernel at every shape :func:`l2dist_plan` covers; a
     shape it does not cover raises."""
+    _work("l2dist", *l2dist_work(x.shape[0], q.shape[0], x.shape[-1]))
     if _on_cpu(x, q):
         return ref.l2dist(x, q)
     n, nq, d = _l2dist_args(x, q)
@@ -278,6 +443,8 @@ def l2dist_general(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     shape: no path runs it; it is the bit-equality witness the card's
     checks hold the tiled kernel against. Counted in ``"l2dist"`` and in
     ``"l2dist_general"``."""
+    for name in ("l2dist", "l2dist_general"):
+        _work(name, *l2dist_work(x.shape[0], q.shape[0], x.shape[-1]))
     if _on_cpu(x, q):
         return ref.l2dist(x, q)
     n, nq, d = _l2dist_args(x, q)
@@ -297,6 +464,7 @@ def l2dist_rows(x: torch.Tensor, ids: torch.Tensor,
     through device memory. Every id must lie in [0, C). The kernel runs
     chunks of draws across all R rows at once, so ids in ascending order
     within each row read the rows several pairs draw from L2."""
+    _work("l2dist_rows", *l2dist_rows_work(*ids.shape, x.shape[-1]))
     if _on_cpu(x, ids, qs):
         return ref.l2dist_rows(x, ids, qs)
     _check(x, "x", torch.float32, 2)
@@ -347,6 +515,18 @@ def _adc_layout(codes: torch.Tensor, luts: torch.Tensor,
     return m, kc, cb, int(packed), align
 
 
+def _adc_rows_work(name: str, codes, ids, luts) -> None:
+    r, c = ids.shape
+    _work(name, *adc_rows_work(r, c, codes.shape[-1], luts.shape[1],
+                               luts[0].numel() * luts.element_size(),
+                               min(r, luts.shape[0])))
+
+
+def _adc_batch_work(name: str, codes, luts) -> None:
+    _work(name, *adc_batch_work(luts.shape[0], *codes.shape, luts.shape[1],
+                                luts.numel() * luts.element_size(), 4))
+
+
 def _adc_rows(name: str, fn: str, lut_dtype, out_dtype, codes, ids, luts,
               lane_q):
     m, kc, cb, packed, align = _adc_layout(codes, luts, lut_dtype)
@@ -371,6 +551,7 @@ def adc_rows(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor,
     row r, candidate i is Σ_m luts[lane_q[r], m, codes[ids[r, i], m]]. The
     gather is fused. Every id must lie in [0, C), every lane_q in [0, Q)
     and every code below Kc."""
+    _adc_rows_work("adc_rows", codes, ids, luts)
     if _on_cpu(codes, ids, luts, lane_q):
         return ref.adc_rows(codes, ids, luts, lane_q)
     return _adc_rows("adc_rows", "adc_rows_f32", torch.float32,
@@ -380,6 +561,7 @@ def adc_rows(codes: torch.Tensor, ids: torch.Tensor, luts: torch.Tensor,
 def adc_rows_q8(codes: torch.Tensor, ids: torch.Tensor, qluts: torch.Tensor,
                 lane_q: torch.Tensor) -> torch.Tensor:
     """:func:`adc_rows` of uint8 LUTs (Q, M, Kc) → (R, c) int32 sums."""
+    _adc_rows_work("adc_rows_q8", codes, ids, qluts)
     if _on_cpu(codes, ids, qluts, lane_q):
         return ref.adc_rows_q8(codes, ids, qluts, lane_q)
     return _adc_rows("adc_rows_q8", "adc_rows_u8", torch.uint8, torch.int32,
@@ -441,6 +623,7 @@ def adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
     """codes (N, M) uint8, or (N, M/2) packed 4-bit codes; luts (Q, M, Kc)
     float32 → (Q, N) float32 ADC distances, one pass over the codes for
     all Q queries. Every code must lie below Kc."""
+    _adc_batch_work("adc_batch", codes, luts)
     if _on_cpu(codes, luts):
         return ref.adc_batch(codes, luts)
     return _adc_batch("adc_batch", "adc_batch_f32", torch.float32,
@@ -449,6 +632,7 @@ def adc_batch(codes: torch.Tensor, luts: torch.Tensor) -> torch.Tensor:
 
 def adc_batch_q8(codes: torch.Tensor, qluts: torch.Tensor) -> torch.Tensor:
     """:func:`adc_batch` of uint8 LUTs (Q, M, Kc) → (Q, N) int32 sums."""
+    _adc_batch_work("adc_batch_q8", codes, qluts)
     if _on_cpu(codes, qluts):
         return ref.adc_batch_q8(codes, qluts)
     return _adc_batch("adc_batch_q8", "adc_batch_u8", torch.uint8,
@@ -547,6 +731,16 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
     ``kc``, and sums their weights and count. Every lane and table id must
     lie in range.
     """
+    na, d = prings.shape[0], qual.x.shape[-1]
+    w = slab_qualify_work(na, d, na * chunk, na)
+    if qual.codes is not None:
+        # rings above exact_rings qualify by ADC: each at the larger cost
+        w = tuple(map(max, w, slab_qualify_work(
+            na, d, 0, 0, na * chunk, na,
+            qual.codes.shape[1] + 4 * (qual.resid is not None),
+            qual.luts[0].numel() * qual.luts.element_size(),
+            qual.luts.shape[1])))
+    _work("slab_qualify", *w)
     opt = [t for t in qual[3:8] if t is not None]
     if _on_cpu(k, ci, lanes, tid, rks, prings, caps, nbits, cums, starts,
                order, qual.x, qual.qs, qual.tau_sq, *opt):
@@ -639,6 +833,14 @@ def central_qualify(qcodes: torch.Tensor, tid: torch.Tensor,
     is the bucket's size; a lane whose code matches no bucket gets 0 for
     all three.
     """
+    nql, d = qual.qs.shape
+    pq = not exact and qual.codes is not None
+    _work("central_qualify", *central_qualify_work(
+        nql, bucket_codes.shape[-1], d, not pq,
+        qual.luts[0].numel() * qual.luts.element_size() if pq else 0,
+        qual.luts.shape[1] if pq else 0,
+        qual.codes.shape[1] + 4 * (qual.resid is not None) if pq
+        else 4 * d, nql * budget))
     opt = [t for t in qual[3:8] if t is not None]
     if _on_cpu(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
                bucket_sizes, order, qual.x, qual.qs, qual.tau_sq, *opt):
@@ -771,6 +973,9 @@ def cache_insert(cache, qcodes: torch.Tensor, qhash: torch.Tensor,
     writes; :func:`ref.cache_insert` is its plain version)."""
     lanes = (qcodes, qhash, tau_keys, balls, params_epoch, ests, nvisited,
              probed_k, active)
+    _work("cache_insert", *cache_insert_work(
+        cache.qcodes.shape[0], qcodes.shape[0], *cache.qcodes.shape[1:],
+        match_qhash))
     if _on_cpu(*cache, *lanes):
         return ref.cache_insert(cache, *lanes, match_qhash)
     s, nl, k = cache.qcodes.shape
@@ -889,6 +1094,8 @@ def neighbor_dists(codes: torch.Tensor, n_valid: int, max_dist: int,
             or not out.is_contiguous():
         raise ValueError(f"out: expected contiguous int8 ({b}, {b}), got "
                          f"{out.dtype} {tuple(out.shape)}")
+    if r1 > r0:
+        _work("neighbor_dists", *neighbor_dists_work(b, k, n_valid, r0, r1))
     if cpu:
         return ref.neighbor_dists(codes, n_valid, max_dist, r0, r1, out)
     if not 0 < k <= 32:

@@ -232,6 +232,19 @@ def central_qualify(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
     lane whose code matches no bucket gets 0 for all three. The ids are
     the ones the ring-0 cumsum walk gives, laid out the same way, so the
     sums agree with it bit for bit."""
+    ids, valid, seen, total = central_ids(qcodes, tid, bucket_codes,
+                                          n_buckets, bucket_starts,
+                                          bucket_sizes, order, budget)
+    lanes = torch.arange(ids.shape[0], device=ids.device)
+    qualified = (qualify(qual, ids, lanes, exact) * valid).sum(-1)
+    return qualified, seen, total
+
+
+def central_ids(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
+                bucket_sizes, order, budget: int):
+    """The candidates :func:`central_qualify` qualifies: ``(ids (QL,
+    budget) int32, valid (QL, budget) bool, seen (QL,) int32, total (QL,)
+    int32)``."""
     nb, k = bucket_codes.shape[1:]
     qc = qcodes.reshape(-1, k)
     tid = tid.long()
@@ -246,9 +259,7 @@ def central_qualify(qcodes, tid, bucket_codes, n_buckets, bucket_starts,
     valid = slots < seen[:, None]
     pos = torch.where(valid, bucket_starts[tid, row][:, None] + slots, 0)
     ids = order[tid[:, None], pos.clamp(0, order.shape[1] - 1).long()]
-    lanes = torch.arange(qc.shape[0], device=dev)
-    qualified = (qualify(qual, ids, lanes, exact) * valid).sum(-1)
-    return qualified, seen, total
+    return ids, valid, seen, total
 
 
 def gather_ring_from_cum(view, tid, cum, budget: int):

@@ -6,6 +6,8 @@ current process group (one device a rank), with the reference's axis names.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -35,3 +37,24 @@ def make_host_mesh(model: int = 1, device="cuda") -> DeviceMesh:
     assert n % model == 0
     return init_device_mesh(torch.device(device).type, (n // model, model),
                             mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A default process group of the "fake" backend with ``world`` ranks,
+    this process rank 0, for the dry runs: every collective completes at
+    once without sending a byte (``utils.comms`` still sees it), so
+    :func:`make_production_mesh` builds its 256- or 512-rank mesh in one
+    process. Destroyed on exit, also when the body raises. Raises if a
+    default group already exists: it never reuses one."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists; the "
+                           "fake world needs a process without one")
+    # importing the module registers the backend with c10d
+    from torch.testing._internal.distributed import fake_pg
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=fake_pg.FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

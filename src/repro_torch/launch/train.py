@@ -177,12 +177,14 @@ def build_loop(args: argparse.Namespace):
     return loop, state, detector
 
 
-def main(argv=None):
+def main(argv=None, inject=None):
+    """Train as ``argv`` says; ``inject(step)`` true simulates a worker
+    failure at that step (``FaultTolerantLoop.run``). Returns the log."""
     args = parse_args(argv)
     had_group = dist.is_initialized()
     try:
         loop, state, detector = build_loop(args)
-        state, log = loop.run(state, args.steps)
+        state, log = loop.run(state, args.steps, inject=inject)
         rank = dist.get_rank() if dist.is_initialized() else 0
     finally:
         if dist.is_initialized() and not had_group:

@@ -193,17 +193,21 @@ def decode_step(model: MoETransformer, cache: dict, tokens,
     """One token for every sequence; the MoE dispatch groups the whole
     batch as one group of B tokens. ``pos`` scalar or per slot; K/V
     written in place. Returns (logits (B, V) float32, the cache with
-    ``pos + 1``)."""
-    x = L.embed(model.embed, tokens[:, None], cfg)        # (B, 1, D)
-    pos = cache["pos"]
-    slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
-    for i, blk in enumerate(model.layers):
-        h = L.apply_norm(blk.ln1, x, cfg)
-        x = x + L.cached_decode_attention(blk.attn, h, cache["k"][i],
-                                          cache["v"][i], pos, cfg, slots)[0]
-        h = L.apply_norm(blk.ln2, x, cfg)
-        x = x + apply_moe(blk.moe, h.reshape(1, -1, cfg.d_model),
-                          cfg).reshape(x.shape)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    logits = L.unembed(model.embed, x, cfg)[:, 0]
+    ``pos + 1``). On a mesh the non-layer parameters are gathered for the
+    call and each block's inside the loop (``act.gathered``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, tokens[:, None], cfg)    # (B, 1, D)
+        pos = cache["pos"]
+        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        for i, blk in enumerate(model.layers):
+            with act.gathered(blk):
+                h = L.apply_norm(blk.ln1, x, cfg)
+                x = x + L.cached_decode_attention(
+                    blk.attn, h, cache["k"][i], cache["v"][i], pos, cfg,
+                    slots)[0]
+                h = L.apply_norm(blk.ln2, x, cfg)
+                x = x + apply_moe(blk.moe, h.reshape(1, -1, cfg.d_model),
+                                  cfg).reshape(x.shape)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        logits = L.unembed(model.embed, x, cfg)[:, 0]
     return logits, {**cache, "pos": pos + 1}

@@ -113,7 +113,8 @@ def rec_step(p: Recurrent, x, state: dict, cfg: ModelConfig):
     xi = x[:, 0] @ p.w_in.to(x.dtype)                     # (B, W)
     dt = torch.promote_types(state["conv"].dtype, xi.dtype)
     hist = torch.cat([state["conv"].to(dt), xi[:, None].to(dt)], dim=1)
-    u = torch.einsum("bcw,cw->bw", hist.float(), p.conv_w) + p.conv_b
+    u = torch.einsum("bcw,cw->bw", hist.float(), p.conv_w.float()) \
+        + p.conv_b
     a, b = _lru_coeffs(p, u)
     h = a * state["h"] + b
     gate = F.gelu(x[:, 0] @ p.w_gate.to(x.dtype), approximate="tanh")
@@ -255,20 +256,32 @@ def _rec_block_step(p: Block, x, st: dict, i: int, cfg: ModelConfig):
 @torch.no_grad()
 def decode_step(model: Griffin, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence; states and K/V rings written in
-    place. Returns (logits (B, V) float32, the cache with ``pos + 1``)."""
-    x = L.embed(model.embed, tokens[:, None], cfg)
-    pos = cache["pos"]
-    slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
-    for i, grp in enumerate(model.groups):
-        x = _rec_block_step(grp.rec1, x, cache["rec1"], i, cfg)
-        x = _rec_block_step(grp.rec2, x, cache["rec2"], i, cfg)
-        h = L.apply_norm(grp.attn.ln1, x, cfg)
-        x = x + L.cached_decode_attention(grp.attn.mix, h, cache["k"][i],
-                                          cache["v"][i], pos, cfg, slots)[0]
-        x = x + L.apply_mlp(grp.attn.mlp, L.apply_norm(grp.attn.ln2, x, cfg),
-                            cfg)
-    for i, blk in enumerate(getattr(model, "tail", ())):
-        x = _rec_block_step(blk, x, cache["tail"], i, cfg)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    logits = L.unembed(model.embed, x, cfg)[:, 0]
+    place. Returns (logits (B, V) float32, the cache with ``pos + 1``).
+    On a mesh the non-layer parameters are gathered for the call and each
+    group's or tail block's inside its loop (``act.gathered``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, tokens[:, None], cfg)
+        pos = cache["pos"]
+        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        for i, grp in enumerate(model.groups):
+            with act.gathered(grp):
+                x = _group_step(grp, x, cache, i, pos, cfg, slots)
+        for i, blk in enumerate(getattr(model, "tail", ())):
+            with act.gathered(blk):
+                x = _rec_block_step(blk, x, cache["tail"], i, cfg)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        logits = L.unembed(model.embed, x, cfg)[:, 0]
     return logits, {**cache, "pos": pos + 1}
+
+
+def _group_step(grp: Group, x, cache: dict, i: int, pos, cfg: ModelConfig,
+                slots):
+    """Group ``i``'s decode step: its two recurrent blocks and its
+    attention block, the states and K/V ring written in place."""
+    x = _rec_block_step(grp.rec1, x, cache["rec1"], i, cfg)
+    x = _rec_block_step(grp.rec2, x, cache["rec2"], i, cfg)
+    h = L.apply_norm(grp.attn.ln1, x, cfg)
+    x = x + L.cached_decode_attention(grp.attn.mix, h, cache["k"][i],
+                                      cache["v"][i], pos, cfg, slots)[0]
+    return x + L.apply_mlp(grp.attn.mlp, L.apply_norm(grp.attn.ln2, x, cfg),
+                           cfg)

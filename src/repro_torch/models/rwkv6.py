@@ -82,7 +82,8 @@ def _ddlerp(p: TimeMix, x, xx):
     base = x + (xx - x) * p.mu_x.to(x.dtype)
     lora = torch.tanh(base @ p.lora_a.to(x.dtype))
     lora = lora.reshape(*lora.shape[:-1], _MIX, _LORA)
-    delta = torch.einsum("...mr,mrd->...md", lora.float(), p.lora_b)
+    delta = torch.einsum("...mr,mrd->...md", lora.float(),
+                          p.lora_b.float())
     mix = p.mu + delta                                   # (B, S, 5, D)
     return [x + (xx - x) * mix[..., i, :].to(x.dtype) for i in range(_MIX)]
 
@@ -96,7 +97,8 @@ def _tm_projections(p: TimeMix, x, xx, cfg: ModelConfig):
     k = (xk @ p.wk.to(x.dtype)).reshape(shape).float()
     v = (xv @ p.wv.to(x.dtype)).reshape(shape).float()
     g = F.silu(xg @ p.wg.to(x.dtype))
-    dec = p.w0 + torch.tanh(xw.float() @ p.decay_a) @ p.decay_b
+    dec = p.w0 + torch.tanh(xw.float() @ p.decay_a.float()) \
+        @ p.decay_b.float()
     w = torch.exp(-torch.exp(dec)).reshape(shape)
     return r, k, v, g, w
 
@@ -278,20 +280,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 @torch.no_grad()
 def decode_step(model: RWKV, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence; the state is written in place.
-    Returns (logits (B, V) float32, the cache with ``pos + 1``)."""
-    x = L.embed(model.embed, tokens[:, None], cfg)[:, 0]   # (B, D)
-    for i, blk in enumerate(model.layers):
-        h = L.apply_norm(blk.ln1, x[:, None], cfg)[:, 0]
-        o, st = tm_step(blk.tm, h, {"S": cache["S"][i],
-                                    "shift": cache["tm_shift"][i]}, cfg)
-        x = x + o
-        h = L.apply_norm(blk.ln2, x[:, None], cfg)[:, 0]
-        o = cm_fwd(blk.cm, h[:, None],
-                   cache["cm_shift"][i][:, None].to(x.dtype), cfg)[:, 0]
-        x = x + o
-        cache["S"][i].copy_(st["S"])
-        cache["tm_shift"][i].copy_(st["shift"])
-        cache["cm_shift"][i].copy_(h)
-    x = L.apply_norm(model.final_norm, x[:, None], cfg)
-    logits = L.unembed(model.embed, x, cfg)[:, 0]
+    Returns (logits (B, V) float32, the cache with ``pos + 1``). On a
+    mesh the non-layer parameters are gathered for the call and each
+    block's inside the loop (``act.gathered``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, tokens[:, None], cfg)[:, 0]   # (B, D)
+        for i, blk in enumerate(model.layers):
+            with act.gathered(blk):
+                x = _decode_block(blk, x, cache, i, cfg)
+        x = L.apply_norm(model.final_norm, x[:, None], cfg)
+        logits = L.unembed(model.embed, x, cfg)[:, 0]
     return logits, {**cache, "pos": cache["pos"] + 1}
+
+
+def _decode_block(blk: Block, x, cache: dict, i: int, cfg: ModelConfig):
+    """Block ``i``'s decode step, its state written into ``cache`` in
+    place."""
+    h = L.apply_norm(blk.ln1, x[:, None], cfg)[:, 0]
+    o, st = tm_step(blk.tm, h, {"S": cache["S"][i],
+                                "shift": cache["tm_shift"][i]}, cfg)
+    x = x + o
+    h = L.apply_norm(blk.ln2, x[:, None], cfg)[:, 0]
+    o = cm_fwd(blk.cm, h[:, None],
+               cache["cm_shift"][i][:, None].to(x.dtype), cfg)[:, 0]
+    cache["S"][i].copy_(st["S"])
+    cache["tm_shift"][i].copy_(st["shift"])
+    cache["cm_shift"][i].copy_(h)
+    return x + o

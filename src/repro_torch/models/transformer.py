@@ -134,25 +134,35 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(model: Transformer, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence in the batch. tokens (B,) int. The
     cache's ``pos`` is a scalar or (B,) per-slot positions. Returns
-    (logits (B, V) float32, the cache with ``pos + 1``)."""
-    x = L.embed(model.embed, tokens[:, None], cfg)        # (B, 1, D)
-    pos = cache["pos"]
-    slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
-    for i, blk in enumerate(model.layers):
-        h = L.apply_norm(blk.ln1, x, cfg)
-        if cfg.kv_quant:
-            a = L.cached_decode_attention_q8(
-                blk.attn, h, cache["k"][i], cache["v"][i], cache["ks"][i],
-                cache["vs"][i], pos, cfg, slots)[0]
-        else:
-            a = L.cached_decode_attention(blk.attn, h, cache["k"][i],
-                                          cache["v"][i], pos, cfg,
-                                          slots)[0]
-        x = x + a
-        x = x + L.apply_mlp(blk.mlp, L.apply_norm(blk.ln2, x, cfg), cfg)
-    x = L.apply_norm(model.final_norm, x, cfg)
-    logits = L.unembed(model.embed, x, cfg)[:, 0]         # (B, V)
+    (logits (B, V) float32, the cache with ``pos + 1``). On a mesh the
+    non-layer parameters are gathered for the call and each block's
+    inside the loop (``act.gathered``)."""
+    with act.gathered(model, "embed", "final_norm"):
+        x = L.embed(model.embed, tokens[:, None], cfg)    # (B, 1, D)
+        pos = cache["pos"]
+        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        for i, blk in enumerate(model.layers):
+            with act.gathered(blk):
+                x = _decode_block(blk, x, cache, i, pos, cfg, slots)
+        x = L.apply_norm(model.final_norm, x, cfg)
+        logits = L.unembed(model.embed, x, cfg)[:, 0]     # (B, V)
     return logits, {**cache, "pos": pos + 1}
+
+
+def _decode_block(blk: Block, x, cache: dict, i: int, pos, cfg: ModelConfig,
+                  slots):
+    """Block ``i``'s decode step, its K/V written into ``cache`` in
+    place."""
+    h = L.apply_norm(blk.ln1, x, cfg)
+    if cfg.kv_quant:
+        a = L.cached_decode_attention_q8(
+            blk.attn, h, cache["k"][i], cache["v"][i], cache["ks"][i],
+            cache["vs"][i], pos, cfg, slots)[0]
+    else:
+        a = L.cached_decode_attention(blk.attn, h, cache["k"][i],
+                                      cache["v"][i], pos, cfg, slots)[0]
+    x = x + a
+    return x + L.apply_mlp(blk.mlp, L.apply_norm(blk.ln2, x, cfg), cfg)
 
 
 @torch.no_grad()

@@ -108,7 +108,8 @@ def encode(model: Whisper, frames, cfg: ModelConfig):
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
     for lp in model.enc_layers:
         x = L.remat(_enc_layer, lp, x, cfg)
-    return L.apply_norm(model.enc_norm, x, cfg)
+    with act.gathered(model, "enc_norm"):
+        return L.apply_norm(model.enc_norm, x, cfg)
 
 
 def _enc_layer(lp: EncLayer, x, cfg: ModelConfig):
@@ -194,7 +195,8 @@ def prefill_cross(model: Whisper, enc_out, cache: dict, cfg: ModelConfig):
     """The cache with ``xk`` / ``xv`` (L, B, S_enc, KV, hd), in the cache's
     dtype, from the encoder output (B, S_enc, D): every decoder layer's
     cross-attention K/V. S_enc sets their length, as in the reference."""
-    kvs = [_enc_kv(lp.cross_attn, enc_out, cfg) for lp in model.dec_layers]
+    kvs = [act.gathering(_enc_kv)(lp.cross_attn, enc_out, cfg)
+           for lp in model.dec_layers]
     return {**cache,
             "xk": torch.stack([k for k, _ in kvs]).to(cache["xk"].dtype),
             "xv": torch.stack([v for _, v in kvs]).to(cache["xv"].dtype)}
@@ -205,23 +207,35 @@ def decode_step(model: Whisper, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence against the self-attention cache
     (written in place) and the cross-attention K/V. ``pos`` a scalar or
     per slot. Returns (logits (B, V) float32, the cache with
-    ``pos + 1``)."""
-    x = L.embed(model.embed, tokens[:, None], cfg)        # (B, 1, D)
-    pos = cache["pos"]
-    x = x + model.dec_pos[(pos % _MAX_DEC).long()].reshape(
-        -1, 1, cfg.d_model).to(x.dtype)
-    no_rope = cfg.replace(rope_theta=0.0)
-    slots = L.decode_slots(x, cache["k"].shape[2], pos, no_rope)
-    for i, lp in enumerate(model.dec_layers):
-        h = L.apply_norm(lp.ln1, x, cfg)
-        x = x + L.cached_decode_attention(lp.self_attn, h, cache["k"][i],
-                                          cache["v"][i], pos, no_rope,
-                                          slots)[0]
-        h = L.apply_norm(lp.ln2, x, cfg)
-        x = x + _cross_attention(lp.cross_attn, h,
-                                 (cache["xk"][i].to(x.dtype),
-                                  cache["xv"][i].to(x.dtype)), cfg)
-        x = x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))
-    x = L.apply_norm(model.dec_norm, x, cfg)
-    logits = L.unembed(model.embed, x, cfg)[:, 0]
+    ``pos + 1``). On a mesh the non-layer parameters are gathered for the
+    call and each layer's inside the loop (``act.gathered``)."""
+    with act.gathered(model, "embed", "dec_pos", "dec_norm"):
+        x = L.embed(model.embed, tokens[:, None], cfg)    # (B, 1, D)
+        pos = cache["pos"]
+        # index_select, not indexing: a 0-d index would be read on the host
+        rows = (pos % _MAX_DEC).long().reshape(-1)
+        x = x + model.dec_pos.index_select(0, rows).reshape(
+            -1, 1, cfg.d_model).to(x.dtype)
+        no_rope = cfg.replace(rope_theta=0.0)
+        slots = L.decode_slots(x, cache["k"].shape[2], pos, no_rope)
+        for i, lp in enumerate(model.dec_layers):
+            with act.gathered(lp):
+                x = _decode_layer(lp, x, cache, i, pos, no_rope, slots)
+        x = L.apply_norm(model.dec_norm, x, cfg)
+        logits = L.unembed(model.embed, x, cfg)[:, 0]
     return logits, {**cache, "pos": pos + 1}
+
+
+def _decode_layer(lp: DecLayer, x, cache: dict, i: int, pos,
+                  cfg: ModelConfig, slots):
+    """Decoder layer ``i``'s step (``cfg`` without rope): self-attention
+    against its cache (written in place), cross-attention against the
+    precomputed K/V."""
+    h = L.apply_norm(lp.ln1, x, cfg)
+    x = x + L.cached_decode_attention(lp.self_attn, h, cache["k"][i],
+                                      cache["v"][i], pos, cfg, slots)[0]
+    h = L.apply_norm(lp.ln2, x, cfg)
+    x = x + _cross_attention(lp.cross_attn, h,
+                             (cache["xk"][i].to(x.dtype),
+                              cache["xv"][i].to(x.dtype)), cfg)
+    return x + _mlp(lp.mlp, L.apply_norm(lp.ln3, x, cfg))

@@ -166,9 +166,13 @@ class CardinalityCoalescer:
 
     # ------------------------------------------------- dynamic ingest -----
     def ingest(self, x_new) -> int:
-        """Queue new corpus points (paper §5); full chunks of
-        ``cfg.ingest_chunk`` are applied at once, the rest before the next
-        flush. Returns the number still buffered."""
+        """Queue new corpus points (paper §5); ``x_new`` (n, d) or (d,) is
+        an array or a tensor on any device (held on the host until it is
+        applied). Full chunks of ``cfg.ingest_chunk`` are applied at once,
+        the rest before the next flush. Returns the number still
+        buffered."""
+        if isinstance(x_new, torch.Tensor):
+            x_new = x_new.detach().cpu()
         x = np.asarray(x_new, np.float32)
         if x.ndim == 1:
             x = x[None]

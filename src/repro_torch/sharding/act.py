@@ -20,6 +20,11 @@ between a block's forward and its backward.
 sites: an activation is always the rank's local batch shard, a plain
 tensor, so there is no layout to pin.
 
+The serve steps on a mesh (``serve/step.py``) gather the same way
+without ``layers.remat``: each family's decode step gathers its non-layer
+parameters around the call and each block inside its loop
+(``with gathered(blk): ...``).
+
 The launchers enable the gather with ``with activation_sharding(mesh,
 ("pod", "data")): ...`` around a step. Without it, or on plain parameters,
 :func:`gathering` and :func:`gathered` change nothing: the models run
@@ -101,13 +106,14 @@ def gathered(model: nn.Module, *names: str):
     """The model's non-layer parameters, gathered around its block loop:
     each name is a submodule of ``model`` (``embed``: the embedding and
     ``lm_head``; ``final_norm``) whose parameters are gathered, or a
-    parameter of ``model`` itself (whisper's ``dec_pos``). No-op outside
-    :func:`activation_sharding`."""
+    parameter of ``model`` itself (whisper's ``dec_pos``). With no names,
+    every parameter of ``model`` (a block, in the decode steps' loops).
+    No-op outside :func:`activation_sharding`."""
     ctx = _CTX.get()
     if ctx is None:
         yield
         return
-    targets = []
+    targets = [] if names else _params_of(model)
     for name in names:
         if name in model._parameters:
             targets.append((model, name))
@@ -115,3 +121,4 @@ def gathered(model: nn.Module, *names: str):
             targets += _params_of(getattr(model, name))
     with _swap(targets, _grad_placements(ctx)):
         yield
+

@@ -7,7 +7,8 @@ parameters are updated in place; the trainer holds them in float32
 (``init(..., param_dtype=torch.float32)``), as the reference holds every
 parameter. The reference's ``unroll_layers`` patches ``lax.scan`` for the
 dry run's cost analysis and has no counterpart: the port runs its layers in
-a Python loop, and the dry run is not ported yet.
+a Python loop, which the dry run (``launch/dryrun.py``) traces layer by
+layer.
 
 On a mesh (``mesh=``; the parameters and AdamW state are DTensors placed
 by ``sharding.rules``, ``launch/train.build_trainer``) every rank runs the
@@ -116,10 +117,13 @@ def _whole(batch: dict) -> dict:
 
 
 def _local_batch(mesh):
-    """batch -> this rank's rows of each input (``rules.batch_specs``)."""
+    """batch -> this rank's rows of each input (``rules.batch_specs``); an
+    input already placed on the mesh (a DTensor, as the dry run passes the
+    production batch) is its own local shard."""
     def local(batch: dict) -> dict:
         specs = rules.batch_specs(batch, mesh)
-        return {k: rules.local_chunk(x, mesh, specs[k].placements)
+        return {k: x.to_local() if isinstance(x, DTensor)
+                else rules.local_chunk(x, mesh, specs[k].placements)
                 for k, x in batch.items()}
     return local
 

@@ -439,6 +439,29 @@ def test_planner_builds_and_plans_on_its_own(data):
     assert tp.cache_stats["lookups"] == 0
 
 
+@pytest.mark.parametrize("dev", ["cpu", pytest.param("cuda",
+                                                     marks=pytest.mark.cuda)])
+def test_planner_update_corpus_takes_a_tensor_on_its_device(data, dev):
+    """``update_corpus`` takes new embeddings as a tensor on the planner's
+    own device, as ``submit`` takes queries: the same state as an update
+    from a host array."""
+    if dev == "cuda":
+        _card()
+    new = torch.from_numpy(np.ascontiguousarray(data[1024:1100]))
+    states = []
+    for x in (new.to(dev), new.numpy()):
+        tp = SemanticPlanner(data[:1024], CFG,
+                             torch.Generator(device=dev).manual_seed(4),
+                             max_calls=40, capacity=2048, device=dev)
+        tp.update_corpus(x)
+        states.append(tp.state)
+    assert int(states[0].n_valid) == int(states[1].n_valid) == 1100
+    assert torch.equal(states[0].x, states[1].x)
+    for a, b in zip(states[0].index, states[1].index):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+
+
 # ---- on the card: the cache_insert kernel against its plain version ------
 
 def _insert_inputs(g, s, n, nl, k, dev, full=False):
