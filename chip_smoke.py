@@ -297,6 +297,28 @@ M1. The mesh trainer (``launch.train.build_trainer(mesh=...)``: DTensor
     trainer does not repeat itself bit for bit there). Logs each step's
     CUDA-event ms and host ms (the call without a sync: what DTensor
     dispatch adds) for both, launch calls a step and peak memory.
+    Then tensor parallelism (``m1_tensor_parallel``): the plain runs here,
+    each freed before the next, then M1_TP_RANKS gloo ranks on the card
+    (``run_ranks``, a (1, 4) mesh: NCCL wants a card a rank), each
+    holding a quarter of the heads, d_ff, experts and vocab: the same
+    qwen2.5-3b trainer for M1_STEPS default steps on the same batches,
+    then qwen3-moe-30b-a3b cut to M1_MOE_LAYERS layers for one train step,
+    and M1_DECODE_STEPS decode steps of 4 slots of qwen2-7b (KV = 4 over
+    4: the KV-head route) and of qwen2.5-3b from position M1_SEQ_START
+    (KV = 2: the sequence route, its writes crossing from rank 0's rows
+    to rank 1's), each cut to M1_DECODE_LAYERS layers; those three in
+    float32 compute. Fatal: a step's loss or grad norm beyond M1_TOL of
+    the plain trainer's; a leaf's step-1 gradient norm beyond
+    M1_LEAF_GRAD_TOL, or the norm of its change over the steps beyond
+    M1_LEAF_CHANGE_TOL, of the plain trainer's; the parameters' global
+    norm after the steps beyond M1_PNORM_TOL; an all-gather over "model"
+    other than an activation's (``CollectiveCounter``, one more step);
+    the MoE's loss or grad norm beyond M1_F32_TOL or an assignment or
+    drop that differs; decode logits beyond M1_F32_TOL of their largest,
+    or a decode off its route (the sequence route's combine,
+    ``layers._split_attend``, counted). Logs per rank each step's
+    CUDA-event and host ms, the largest per-leaf gaps, a step's
+    collectives (by group) and the peak.
 
 R1. The dry runs, each in a process of its own (a fake process group,
     apart from M1's NCCL group): ``launch.dryrun`` of ``R1_CELLS``
@@ -4195,9 +4217,46 @@ M1_STEPS = 3         # deterministic (bit-equal), then as many default steps
 M1_TOL = 2e-3
 
 
+# M1's tensor-parallel part: a (1, 4) mesh of gloo ranks on the one card
+# (NCCL wants a card a rank). qwen3-moe-30b-a3b at full width cut to
+# M1_MOE_LAYERS layers (its 128 experts over "model"), one train step of
+# M1_MOE_BATCH; qwen2-7b at full width cut to M1_DECODE_LAYERS layers,
+# M1_DECODE_STEPS decode steps of 4 slots (KV = 4 over 4 ranks: the KV-head
+# route). Both in float32 compute, where only the order of the sums over
+# "model" parts them from the plain steps (bfloat16 rounds each rank's
+# partial sums, and a router tie then moves an assignment): the MoE's
+# assignments bit-equal, loss and grad norm within M1_F32_TOL (relative),
+# the decode logits within M1_F32_TOL of the largest
+M1_TP_RANKS = 4
+M1_MOE_LAYERS, M1_MOE_BATCH = 2, (2, 256)
+M1_DECODE_LAYERS, M1_DECODE_SLOTS, M1_DECODE_LEN = 4, 4, 256
+M1_DECODE_STEPS = 4
+M1_F32_TOL = 1e-4
+M1_TP_TIMEOUT = 600
+# the sequence route: qwen2.5-3b (KV = 2 over 4 ranks) at full width cut to
+# M1_DECODE_LAYERS layers, float32, decoding from M1_SEQ_START (random K / V
+# in the rows before it), so that its writes cross from rank 0's rows of
+# the cache to rank 1's
+M1_SEQ_START = M1_DECODE_LEN // M1_TP_RANKS - M1_DECODE_STEPS // 2
+# The (1, 4) trainer leaf by leaf, relative to the plain trainer's: the
+# norm of each parameter's gradient in step 1 (both trainers start from
+# the same weights) and of its change over the M1_STEPS steps; and the
+# parameters' global norm after them. Readings (H100 80GB HBM3 at 700 W,
+# bf16 compute, the default route): at most 6.4e-3 for a gradient and
+# 4.1e-2 for a change, both on a `bk` bias (its sum over the tokens
+# nearly cancels, and Adam moves an element by ~lr whatever the size of
+# its gradient, so a flipped sign of a near-zero one shows), 7.6e-8 for
+# the global norm. The limits keep ~3x over them; a gradient summed over
+# "model" on too few ranks (a missing f / g) is off by tens of percent.
+M1_LEAF_GRAD_TOL = 2e-2
+M1_LEAF_CHANGE_TOL = 0.125
+M1_PNORM_TOL = 2.5e-7
+
+
 def phase_mesh_training(torch, seed, dev="cuda"):
     """M1 (the module docstring): the mesh trainer on a one-rank NCCL
-    group against the plain trainer, bit for bit."""
+    group against the plain trainer, bit for bit; then the tensor-parallel
+    checks on M1_TP_RANKS gloo ranks (``m1_tensor_parallel``)."""
     import gc
     import torch.distributed as dist
     from repro_torch.launch import train
@@ -4211,6 +4270,7 @@ def phase_mesh_training(torch, seed, dev="cuda"):
             dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
+    m1_tensor_parallel(torch, seed, dev)
 
 
 def m1_trainers(torch, seed, dev):
@@ -4337,6 +4397,378 @@ def m1_equal(torch, tag, plain, popt, sharded, sopt, when):
     if bad or int(popt["step"]) != int(sopt["step"]):
         raise SystemExit(f"{tag}: the mesh trainer's state differs from "
                          f"the plain trainer's {when}: {bad[:4]}")
+
+
+def m1_cfg(arch, smoke=False, **kw):
+    """``arch``'s published config (its smoke config with ``smoke``: a CPU
+    rehearsal) with ``kw``."""
+    from repro_torch import configs
+    get = configs.get_smoke_config if smoke else configs.get_config
+    return get(arch).replace(**kw)
+
+
+def m1_moe_cfg(smoke=False):
+    return m1_cfg("qwen3-moe-30b-a3b", smoke, n_layers=M1_MOE_LAYERS,
+                  dtype="float32")
+
+
+def m1_decode_cfg(smoke=False):
+    return m1_cfg("qwen2-7b", smoke, n_layers=M1_DECODE_LAYERS,
+                  dtype="float32")
+
+
+def m1_decodes(smoke=False):
+    """M1's tensor-parallel decode checks: (name, config, start)."""
+    return (("decode", m1_decode_cfg(smoke), 0),
+            ("seq_decode", m1_cfg(T1_ARCH, smoke, n_layers=M1_DECODE_LAYERS,
+                                  dtype="float32"), M1_SEQ_START))
+
+
+def m1_moe_batch(torch, cfg, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    t = torch.randint(0, cfg.vocab, M1_MOE_BATCH, generator=g, device=dev)
+    return {"tokens": t, "labels": t}
+
+
+def m1_recording_dispatch(calls):
+    """``moe.dispatch`` keeping every call's (slots, keep) on the host."""
+    from repro_torch.models import moe
+    dispatch = moe.dispatch
+
+    def run(topi, n_experts, c):
+        flat, keep = dispatch(topi, n_experts, c)
+        calls.append((flat.cpu(), keep.cpu()))
+        return flat, keep
+    return run
+
+
+def m1_moe_step(torch, cfg, seed, dev, mesh=None):
+    """One train step of the MoE cut (``mesh``: sharded): -> (loss, grad
+    norm, dispatch calls)."""
+    from repro_torch.launch import train
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw
+    model, opt, step = train.build_trainer(
+        cfg, adamw.AdamWConfig(**T1_OPT), seed=seed, device=dev, mesh=mesh)
+    calls = []
+    original, moe.dispatch = moe.dispatch, m1_recording_dispatch(calls)
+    try:
+        _, _, m = step(model, opt, m1_moe_batch(torch, cfg, seed, dev))
+    finally:
+        moe.dispatch = original
+    return float(m["loss"]), float(m["grad_norm"]), calls
+
+
+def m1_decode_logits(torch, cfg, seed, dev, mesh=None, start=0):
+    """M1_DECODE_STEPS decode steps of ``cfg`` from position ``start``
+    (the cache's rows before it random; ``mesh``: weights and cache placed
+    by the rules) -> (logits (steps, B, V) on the host, the calls of the
+    sequence route's combine, ``layers._split_attend``)."""
+    from repro_torch.models import get_family, layers
+    from repro_torch.serve.step import make_decode_step
+    from repro_torch.sharding import rules
+    fam = get_family(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    model = fam.init(cfg, g, dev, param_dtype=torch.float32)
+    cache = fam.init_cache(cfg, M1_DECODE_SLOTS, M1_DECODE_LEN,
+                           dtype=torch.float32, device=dev)
+    for k in ("k", "v"):
+        rows = cache[k][:, :, :start]
+        rows.copy_(torch.randn(rows.shape, generator=g, device=dev))
+    cache["pos"].fill_(start)
+    toks = torch.randint(0, cfg.vocab, (M1_DECODE_STEPS, M1_DECODE_SLOTS),
+                         generator=g, device=dev)
+    if mesh is not None:
+        for name, spec in rules.param_specs(model, mesh).items():
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            mod.register_parameter(leaf, torch.nn.Parameter(rules.place(
+                mod._parameters[leaf].detach(), mesh, spec.placements)))
+        cspecs = rules.cache_specs(cache, mesh)
+        cache = {k: rules.place(v, mesh, cspecs[k].placements)
+                 for k, v in cache.items()}
+    step = make_decode_step(cfg, mesh=mesh)
+    out, combines = [], [0]
+    split_attend = layers._split_attend
+
+    def counted(*a):
+        combines[0] += 1
+        return split_attend(*a)
+    layers._split_attend = counted
+    try:
+        for t in toks:
+            logits, cache = step(model, cache, t)
+            out.append(logits.cpu())
+    finally:
+        layers._split_attend = split_attend
+    return torch.stack(out), combines[0]
+
+
+def m1_leaf_steps(torch, cfg, seed, dev, mesh=None):
+    """M1_STEPS default steps of ``cfg``'s trainer (``mesh``: sharded by
+    the rules) on the T1 batches -> (model, opt, step, rows: (event ms,
+    host ms, loss, grad norm) a step, leaves: the norms of each
+    parameter's step-1 gradient (``"grad"``) and of its change over the
+    steps (``"change"``)). Step 1 also keeps a copy of its gradients (the
+    ``grad_transform`` hook) and the steps a copy of the parameters."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    cuda = dev.type == "cuda"
+    opt_cfg = adamw.AdamWConfig(**T1_OPT)
+    model, opt, _ = train.build_trainer(
+        cfg, opt_cfg, microbatches=T1_MICRO, seed=seed, device=dev,
+        mesh=mesh)
+    kept = {}
+
+    def keep(grads):
+        if not kept:
+            kept.update({k: g.detach().clone() for k, g in grads.items()})
+        return grads
+    step = train.make_train_step(cfg, opt_cfg, n_microbatches=T1_MICRO,
+                                 grad_transform=keep, mesh=mesh)
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=T1_BATCH, seq=T1_SEQ,
+                         seed=seed, device=dev)
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    rows = []
+    for _ in range(M1_STEPS):
+        batch = pipe.next()
+        if cuda:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        _, _, m = step(model, opt, batch)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+        rows.append((start.elapsed_time(end) if cuda else host_ms, host_ms,
+                     float(m["loss"]), float(m["grad_norm"])))
+
+    def norm(t):
+        return float(adamw.global_norm({"leaf": t}))
+    leaves = {"grad": {k: norm(g) for k, g in kept.items()},
+              "change": {k: norm(p.detach() - before.pop(k))
+                         for k, p in model.named_parameters()}}
+    kept.clear()
+    return model, opt, (step, pipe), rows, leaves
+
+
+def m1_leaf_gaps(want: dict, got: dict) -> dict:
+    """Per kind ("grad", "change"): the three largest relative gaps of a
+    leaf's norm from the plain trainer's, as (gap, leaf), largest first."""
+    out = {}
+    for kind, ref in want.items():
+        gaps = [(abs(got[kind][k] - v) / v if v else
+                 float(got[kind][k] != 0), k) for k, v in ref.items()]
+        out[kind] = sorted(gaps, reverse=True)[:3]
+    return out
+
+
+def m1_tp_rank(rank, spec):
+    """One rank of M1's tensor-parallel checks (spawned by
+    ``distributed.run_ranks``, gloo): the (1, M1_TP_RANKS) mesh trainer of
+    qwen2.5-3b (M1_LAYERS) for M1_STEPS steps (CUDA events, host ms, loss,
+    grad norm, the per-leaf norms of ``m1_leaf_steps``), one more step
+    under ``CollectiveCounter``, the parameters' global norm and the peak;
+    the MoE step; the decode steps on the KV-head and the sequence routes.
+    Writes its record to ``spec["out"]``."""
+    import gc
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.utils.comms import CollectiveCounter
+    dev, seed, smoke = torch.device(spec["dev"]), spec["seed"], spec["smoke"]
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    else:
+        torch.set_num_threads(1)
+    # gloo on both axes: a mesh axis that spans the world would otherwise
+    # get a group of the card's default backend (NCCL), a card a rank
+    mesh = init_device_mesh(dev.type, (1, M1_TP_RANKS),
+                            mesh_dim_names=("data", "model"),
+                            backend_override={"data": "gloo",
+                                              "model": "gloo"})
+    cuda = dev.type == "cuda"
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+
+    rec = {"rank": rank, "model_group": mesh.get_group("model").group_name}
+    cfg = m1_cfg(T1_ARCH, smoke, n_layers=M1_LAYERS)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model, opt, (step, pipe), rec["rows"], rec["leaves"] = m1_leaf_steps(
+        torch, cfg, seed, dev, mesh)
+    rec["param_norm"] = float(adamw.global_norm(
+        dict(model.named_parameters())))
+    with CollectiveCounter() as cc:
+        step(model, opt, pipe.next())
+    rec["collectives"] = cc.collective_bytes()
+    rec["by_group"] = cc.by_group()
+    rec["model_gathers"] = sorted({r["line"] for r in cc.records
+                                   if r["op"] == "all-gather"
+                                   and r["group"] == rec["model_group"]})
+    rec["peak_gib"] = peak()
+    del model, opt, step
+    free()
+    loss, gn, calls = m1_moe_step(torch, m1_moe_cfg(smoke), seed, dev, mesh)
+    rec["moe"] = [loss, gn]
+    want = torch.load(spec["moe_calls"])
+    rec["moe_calls_equal"] = len(calls) == len(want) and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(calls, want))
+    free()
+    for name, dcfg, start in m1_decodes(smoke):
+        logits, rec[f"{name}_combines"] = m1_decode_logits(
+            torch, dcfg, seed, dev, mesh, start)
+        want = torch.load(spec[name])
+        rec[f"{name}_err"] = float((logits - want).abs().max())
+        rec[f"{name}_scale"] = float(want.abs().max())
+        free()
+    rec["peak_all_gib"] = peak()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+
+
+def m1_tensor_parallel(torch, seed, dev, smoke=False):
+    """M1's tensor-parallel part: the plain runs first, here (each freed
+    before the next), then M1_TP_RANKS gloo ranks on the card
+    (``m1_tp_rank``) and the checks: each step's loss and grad norm
+    within M1_TOL of the plain trainer's on the same batches (the
+    default route, as the one-rank part's default steps); each leaf's
+    step-1 gradient norm within M1_LEAF_GRAD_TOL and the norm of its
+    change over the steps within M1_LEAF_CHANGE_TOL, the parameters'
+    global norm after them within M1_PNORM_TOL; no all-gather over "model"
+    but an activation's; the MoE step and both decodes' logits within
+    M1_F32_TOL, the MoE's assignments bit-equal, each decode on its route
+    (the sequence route's combine called once a layer a step, the KV-head
+    route's never). ``smoke``: the smoke configs (a CPU rehearsal)."""
+    import gc
+    import tempfile
+    from repro_torch.core import distributed as D
+    from repro_torch.optim import adamw
+    tag = f"M1 TP ({M1_TP_RANKS} gloo ranks, a (1, {M1_TP_RANKS}) mesh)"
+    cfg = m1_cfg(T1_ARCH, smoke, n_layers=M1_LAYERS)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+    model, _, _, rows, leaves = m1_leaf_steps(torch, cfg, seed, dev)
+    plain = [r[2:] for r in rows]
+    pnorm = float(adamw.global_norm(dict(model.named_parameters())))
+    del model
+    free()
+    moe_plain = m1_moe_step(torch, m1_moe_cfg(smoke), seed, dev)
+    free()
+    decodes = {}
+    for name, dcfg, start in m1_decodes(smoke):
+        decodes[name] = m1_decode_logits(torch, dcfg, seed, dev, None,
+                                         start)[0]
+        free()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        spec = dict(seed=seed, out=out, dev=str(dev), smoke=smoke,
+                    moe_calls=os.path.join(out, "moe_calls.pt"))
+        torch.save(moe_plain[2], spec["moe_calls"])
+        for name, logits in decodes.items():
+            spec[name] = os.path.join(out, f"{name}.pt")
+            torch.save(logits, spec[name])
+        t0 = time.perf_counter()
+        D.run_ranks(m1_tp_rank, M1_TP_RANKS, args=(spec,), backend="gloo",
+                    timeout=M1_TP_TIMEOUT)
+        secs = time.perf_counter() - t0
+        recs = [json.loads((Path(out) / f"rank{r}.json").read_text())
+                for r in range(M1_TP_RANKS)]
+    log(f"{tag} ({smi_line()}; the ranks share the card, so no time here "
+        f"is a scaling figure): {T1_ARCH} at {M1_LAYERS} layers, "
+        f"{M1_STEPS} steps of {T1_BATCH} x {T1_SEQ} tokens in {T1_MICRO} "
+        f"microbatches (step 1 also copies its gradients, each step the "
+        f"parameters: the per-leaf checks); the ranks ran {secs:.1f} s")
+    bad = []
+    for r in recs:
+        steps = []
+        for i, ((ev, host, loss, gn), (lp, gp)) in enumerate(
+                zip(r["rows"], plain)):
+            rel = max(abs(loss - lp) / abs(lp), abs(gn - gp) / gp)
+            steps.append(f"step {i + 1}: {ev:.3f} ms (events), {host:.3f} "
+                         f"ms host, loss {loss:.6f} / {lp:.6f}, grad norm "
+                         f"{gn:.6f} / {gp:.6f} (mesh / plain), max relative "
+                         f"|diff| {rel:.3e}")
+            if rel > M1_TOL:
+                bad.append(f"rank {r['rank']} step {i + 1}: {rel:.3e}")
+        prel = abs(r["param_norm"] - pnorm) / pnorm
+        if prel > M1_PNORM_TOL:
+            bad.append(f"rank {r['rank']} parameter norm: {prel:.3e}")
+        gaps = m1_leaf_gaps(leaves, r["leaves"])
+        for kind, tol in (("grad", M1_LEAF_GRAD_TOL),
+                          ("change", M1_LEAF_CHANGE_TOL)):
+            if gaps[kind][0][0] > tol:
+                bad.append(f"rank {r['rank']} {kind} of {gaps[kind][0][1]}: "
+                           f"{gaps[kind][0][0]:.3e}")
+        worst = {kind: ", ".join(f"{g:.3e} ({k})" for g, k in top)
+                 for kind, top in gaps.items()}
+        model_coll = r["by_group"].get(r["model_group"], {})
+        log(f"  rank {r['rank']}: " + "; ".join(steps)
+            + f"; parameters' global norm {r['param_norm']:.6f} / "
+            f"{pnorm:.6f} ({prel:.3e}, tol {M1_PNORM_TOL}); over "
+            f"{len(leaves['grad'])} leaves the largest relative gaps of a "
+            f"step-1 gradient norm {worst['grad']} (tol "
+            f"{M1_LEAF_GRAD_TOL}), of a change's norm over the steps "
+            f"{worst['change']} (tol {M1_LEAF_CHANGE_TOL}); a step's "
+            f"collectives {json.dumps(r['collectives'])}, over 'model' "
+            f"{json.dumps(model_coll)}; all-gathers over 'model' from "
+            f"{r['model_gathers']}; peak {r['peak_gib']:.3f} GiB (the "
+            f"trainer), {r['peak_all_gib']:.3f} GiB (with the MoE and "
+            "decode checks)")
+        if any("_all_gather(y, x.contiguous()" not in line
+               for line in r["model_gathers"]):
+            bad.append(f"rank {r['rank']}: a parameter gathered over "
+                       f"'model': {r['model_gathers']}")
+    mcfg = m1_moe_cfg(smoke)
+    r0 = recs[0]
+    lm, gm = r0["moe"]
+    lp, gp = moe_plain[:2]
+    mrel = max(abs(lm - lp) / abs(lp), abs(gm - gp) / gp)
+    drops = sum(int((~k).sum()) for _, k in moe_plain[2])
+    log(f"{tag} qwen3-moe-30b-a3b at {M1_MOE_LAYERS} layers (full width, "
+        f"{mcfg.n_experts} experts, {mcfg.n_experts // M1_TP_RANKS} a rank; "
+        f"float32 compute), one train step of {M1_MOE_BATCH}: loss "
+        f"{lm:.7f} / {lp:.7f}, grad norm {gm:.7f} / {gp:.7f} (mesh / "
+        f"plain), max relative |diff| {mrel:.3e} (tol {M1_F32_TOL}); "
+        f"assignments and drops ({drops} dropped of "
+        f"{sum(k.numel() for _, k in moe_plain[2])}) bit-equal on every "
+        f"rank: {all(r['moe_calls_equal'] for r in recs)}")
+    if mrel > M1_F32_TOL or not all(r["moe_calls_equal"] for r in recs):
+        bad.append(f"moe: {mrel:.3e}, assignments equal "
+                   f"{[r['moe_calls_equal'] for r in recs]}")
+    for name, dcfg, start in m1_decodes(smoke):
+        derr = max(r[f"{name}_err"] for r in recs)
+        dscale = r0[f"{name}_scale"]
+        seq = dcfg.n_kv % M1_TP_RANKS != 0
+        want = M1_DECODE_LAYERS * M1_DECODE_STEPS if seq else 0
+        combines = [r[f"{name}_combines"] for r in recs]
+        log(f"{tag} {dcfg.name} at {M1_DECODE_LAYERS} layers (full width, "
+            f"KV {dcfg.n_kv} over {M1_TP_RANKS}: "
+            f"{'the sequence' if seq else 'the KV-head'} route; float32), "
+            f"{M1_DECODE_STEPS} decode steps of {M1_DECODE_SLOTS} slots "
+            f"from position {start} of {M1_DECODE_LEN} "
+            f"({M1_DECODE_LEN // M1_TP_RANKS} rows a rank): max |diff| of "
+            f"the logits {derr:.3e} against the plain steps' (largest "
+            f"{dscale:.3f}; tol {M1_F32_TOL} of it); "
+            f"the sequence route's combines a rank {combines} (want {want})")
+        if derr > M1_F32_TOL * dscale or any(c != want for c in combines):
+            bad.append(f"{name}: {derr:.3e}, combines {combines}")
+    if bad:
+        raise SystemExit(f"{tag}: the sharded steps part from the plain "
+                         f"ones: {bad}")
 
 
 def _run_all(cmds: dict, timeout: float) -> dict:

@@ -11,8 +11,9 @@ of a full-size tensor is allocated), under the counting modes of
 ``utils/cost.py``. Parameters, batches and caches are DTensors built from
 fake local shards, placed by ``sharding/rules.py`` as the reference places
 them; the step is the port's own (``train/step.py``, ``serve/step.py`` with
-``mesh=``): a rank computes on its batch shard and gathers each block's
-weights when it runs.
+``mesh=``): a rank computes on its batch shard, gathers each block's
+weights over the data axes when it runs and (dense and MoE) computes its
+share of the block over "model".
 
 The record has the reference's keys, with these differences:
   * ``trace_s`` (the traced step's host seconds) in place of ``compile_s``;
@@ -31,8 +32,12 @@ The record has the reference's keys, with these differences:
     assert on grouped-query shapes), bytes each aten op's inputs plus
     outputs (unfused eager traffic, not XLA's fused "bytes accessed");
   * ``attention_route``: how many attention calls took each SDPA backend
-    (``cudnn``, ``flash``, ``efficient``, ``math``) or the plain einsum
-    form (``plain``, the CPU's route).
+    (``cudnn``, ``flash``, ``efficient``, ``math``), the plain einsum
+    form (``plain``, the CPU's route) or a sequence-split decode step's
+    combined partials (``split``);
+  * ``collectives_by_axis``: each mesh axis's collective bytes and calls
+    (``all``: a group of every rank), and each ``top_collectives`` row's
+    ``axis``.
 
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k \\
       --mesh single [--device cpu]
@@ -161,19 +166,27 @@ def trace_cell(cfg: ModelConfig, shape: str, mesh, profile: str = "fsdp_tp",
         def run():
             return step(model, cache, batch["tokens"])
 
-    plain = {"n": 0}
-    sdpa = L._sdpa
+    calls = {"plain": 0, "split": 0}
 
-    def counted(*a, **kw):
-        plain["n"] += 1
-        return sdpa(*a, **kw)
+    def counted(name, fn):
+        def run_counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run_counted
 
-    with mock.patch.object(L, "_sdpa", counted):
+    with mock.patch.object(L, "_sdpa", counted("plain", L._sdpa)), \
+            mock.patch.object(L, "_split_attend",
+                              counted("split", L._split_attend)):
         out, rec = cost.measure(run, *inputs, fake_mode=mode)
     routes = dict(rec.pop("sdpa_routes"))
-    if plain["n"]:
-        routes["plain"] = plain["n"]
+    routes.update({k: n for k, n in calls.items() if n})
     rec["attention_route"] = routes
+    axis = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+    for row in rec["top_collectives"]:
+        row["axis"] = axis.get(row.pop("group"), "all")
+    rec["collectives_by_axis"] = {
+        axis.get(g, "all"): v
+        for g, v in rec.pop("collectives_by_group").items()}
     rec["profile"] = profile
     rec["output_bytes"] = cost.argument_bytes(out)
     rec["alias_bytes"] = cost.argument_bytes(*in_place)
@@ -200,6 +213,7 @@ def analyze(cfg: ModelConfig, shape: str, rec: dict, chips: int) -> dict:
         "cost_corrected": None,
         "collectives": coll,
         "top_collectives": rec["top_collectives"],
+        "collectives_by_axis": rec["collectives_by_axis"],
         "roofline": rf.to_dict(),
         "attention_route": rec["attention_route"],
     }

@@ -13,11 +13,17 @@ through the residual: GShard semantics. ``forward`` groups by sequence;
 ``decode_step`` makes the whole batch one group of B tokens, as the
 reference does; the two differ exactly when tokens are dropped.
 
-The reference's sharding hints (``constrain``, ``constrain_expert``) do
-nothing without a mesh and have no counterpart here; its ``jax.checkpoint``
-of each layer is ``layers.remat`` (the recomputed routing is the first
-pass's: the stable sort is deterministic). Parameters and the family API
-follow :mod:`repro_torch.models.transformer`.
+On a mesh the family is tensor-parallel as the dense one (attention,
+vocab) with its experts over "model" (EP): the router runs on the
+replicated activations, so every rank routes, dispatches and drops
+exactly as one device does; the rank builds its experts' tile of the
+dispatch buffer locally (``act.constrain_expert``, the reference's
+(B over data, E over model) layout), runs them, adds their gated outputs
+and sums over "model" (``act.constrain``). No all-to-all, no expert
+weight gathered over "model". The reference's ``jax.checkpoint`` of each
+layer is ``layers.remat`` (the recomputed routing is the first pass's:
+the stable sort is deterministic). Parameters and the family API follow
+:mod:`repro_torch.models.transformer`.
 """
 from __future__ import annotations
 
@@ -88,40 +94,54 @@ def dispatch(topi, n_experts: int, c: int):
 
 
 def apply_moe(p: MoE, x, cfg: ModelConfig):
-    """x (B, S, D) -> (B, S, D); groups = sequences."""
+    """x (B, S, D) -> (B, S, D); groups = sequences. Expert-parallel
+    (``act.tensor_parallel`` and the experts split over "model"): the rank
+    runs its experts' slots alone, its ``x`` and gates entering that part
+    (``act.enter``), and the output is summed over "model"."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    el = p.wi.shape[0]                      # the rank's experts
+    ep = act.tensor_parallel() is not None and el < e
     c = capacity(cfg, s)
     topv, topi = route(p, x, cfg)
     flat_slot, _ = dispatch(topi, e, c)
+    if ep:
+        x, topv = act.enter(x), act.enter(topv)
     # token ids into their slots (trash slot E·c sliced off; unfilled
-    # slots keep the pad id S), then the buffer by a gather
+    # slots keep the pad id S), then the rank's experts' slots
     tok = torch.arange(s, device=x.device).repeat_interleave(k)
     slot_tok = torch.full((b, e * c + 1), s, dtype=torch.long,
                           device=x.device)
     slot_tok = slot_tok.scatter_(1, flat_slot,
                                  tok.expand(b, s * k))[:, :e * c]
+    if ep:
+        slot_tok = act.constrain_expert(slot_tok, el * c)
+    # the buffer by a gather
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
-    xe = torch.gather(x_pad, 1, slot_tok[..., None].expand(b, e * c, d))
-    xe = xe.reshape(b, e, c, d)
+    xe = torch.gather(x_pad, 1, slot_tok[..., None].expand(b, el * c, d))
+    xe = xe.reshape(b, el, c, d)
     g = F.silu(torch.einsum("becd,edf->becf", xe, p.wg.to(x.dtype)))
     h = torch.einsum("becd,edf->becf", xe, p.wi.to(x.dtype))
     ye = torch.einsum("becf,efd->becd", g * h, p.wo.to(x.dtype))
     gate_slot = x.new_zeros(b, e * c + 1).scatter_(
         1, flat_slot, topv.reshape(b, s * k))[:, :e * c]
+    if ep:
+        gate_slot = act.constrain_expert(gate_slot, el * c)
     # combine: each slot's gated output added to its token (pad row S
     # takes the unfilled slots)
     rows = torch.arange(b, device=x.device)[:, None] * (s + 1)
     out = x.new_zeros(b * (s + 1), d)
     out.index_add_(0, (rows + slot_tok).reshape(-1),
-                   (ye.reshape(b, e * c, d) * gate_slot[..., None]
+                   (ye.reshape(b, el * c, d) * gate_slot[..., None]
                     ).reshape(-1, d))
-    return out.reshape(b, s + 1, d)[:, :s]
+    out = out.reshape(b, s + 1, d)[:, :s]
+    return act.constrain(out) if ep else out
 
 
 class Block(nn.Module):
     """One decoder layer: ``ln1`` → ``attn`` → residual, ``ln2`` →
     ``moe`` → residual."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -133,6 +153,7 @@ class Block(nn.Module):
 
 class MoETransformer(nn.Module):
     """``embed``, ``layers`` (``cfg.n_layers`` blocks) and ``final_norm``."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -157,21 +178,28 @@ def _layer_fwd(p: Block, x, cfg: ModelConfig, rope=None):
     return h + apply_moe(p.moe, L.apply_norm(p.ln2, h, cfg), cfg)
 
 
+def _logits(model: MoETransformer, batch, cfg: ModelConfig):
+    x = L.embed(model.embed, batch["tokens"], cfg)
+    rope = T._rope(x, cfg)
+    for blk in model.layers:
+        x = L.remat(_layer_fwd, blk, x, cfg, rope)
+    x = L.apply_norm(model.final_norm, x, cfg)
+    return L.unembed(model.embed, x, cfg)
+
+
 def forward(model: MoETransformer, batch, cfg: ModelConfig):
     """-> logits (B, S, V) float32 (non-layer parameters gathered on a
-    mesh, as ``transformer.forward``)."""
+    mesh, and the rank's vocab slice with a "model" axis, as
+    ``transformer.forward``)."""
     with act.gathered(model, "embed", "final_norm"):
-        x = L.embed(model.embed, batch["tokens"], cfg)
-        rope = T._rope(x, cfg)
-        for blk in model.layers:
-            x = L.remat(_layer_fwd, blk, x, cfg, rope)
-        x = L.apply_norm(model.final_norm, x, cfg)
-        return L.unembed(model.embed, x, cfg)
+        return _logits(model, batch, cfg)
 
 
 def loss_fn(model: MoETransformer, batch, cfg: ModelConfig):
-    logits = forward(model, batch, cfg)
-    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    with act.gathered(model, "embed", "final_norm"):
+        logits = _logits(model, batch, cfg)
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               vocab=cfg.vocab)
 
 
 # ------------------------------------------------------------- serving -----
@@ -191,23 +219,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def decode_step(model: MoETransformer, cache: dict, tokens,
                 cfg: ModelConfig):
     """One token for every sequence; the MoE dispatch groups the whole
-    batch as one group of B tokens. ``pos`` scalar or per slot; K/V
+    batch as one group of B tokens (on a mesh every data rank's tokens,
+    gathered: ``act.whole_batch``). ``pos`` scalar or per slot; K/V
     written in place. Returns (logits (B, V) float32, the cache with
     ``pos + 1``). On a mesh the non-layer parameters are gathered for the
-    call and each block's inside the loop (``act.gathered``)."""
+    call and each block's inside the loop (``act.gathered``); with a
+    "model" axis as ``transformer.decode_step``."""
     with act.gathered(model, "embed", "final_norm"):
         x = L.embed(model.embed, tokens[:, None], cfg)    # (B, 1, D)
         pos = cache["pos"]
-        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        slots = L.decode_slots(x, L.cache_rows(cache["k"]), pos, cfg)
         for i, blk in enumerate(model.layers):
             with act.gathered(blk):
                 h = L.apply_norm(blk.ln1, x, cfg)
                 x = x + L.cached_decode_attention(
                     blk.attn, h, cache["k"][i], cache["v"][i], pos, cfg,
                     slots)[0]
-                h = L.apply_norm(blk.ln2, x, cfg)
-                x = x + apply_moe(blk.moe, h.reshape(1, -1, cfg.d_model),
-                                  cfg).reshape(x.shape)
+                h = act.whole_batch(L.apply_norm(blk.ln2, x, cfg)[:, 0])
+                y = apply_moe(blk.moe, h[None], cfg)[0]
+                x = x + act.batch_rows(y, x.shape[0])[:, None]
         x = L.apply_norm(model.final_norm, x, cfg)
-        logits = L.unembed(model.embed, x, cfg)[:, 0]
+        logits = L.whole_logits(L.unembed(model.embed, x, cfg)[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}

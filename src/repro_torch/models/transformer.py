@@ -12,7 +12,11 @@ consumes precomputed frontend embeddings instead of token ids.
 
 Each layer runs under ``layers.remat`` (the reference's
 ``jax.checkpoint``): with grad enabled its activations are recomputed in
-the backward pass. Attention runs by the tensors' device
+the backward pass. The family is tensor-parallel (``tensor_parallel``):
+on a mesh each rank computes its heads, d_ff columns and vocab slice
+(``layers``, ``sharding.act``); :func:`forward` then returns the rank's
+vocab slice of the logits, which :func:`loss_fn` reduces over "model"
+without gathering them. Attention runs by the tensors' device
 (``layers.attend``: SDPA on the card, the reference's grouped form on the
 CPU); configs with ``chunked_attn`` run the chunked online-softmax form in
 :func:`forward`, as the reference does. :func:`decode_step` writes the new
@@ -33,6 +37,7 @@ from repro_torch.sharding import act
 class Block(nn.Module):
     """One decoder layer: ``ln1`` → ``attn`` → residual, ``ln2`` → ``mlp``
     → residual."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -44,6 +49,7 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """``embed``, ``layers`` (``cfg.n_layers`` blocks) and ``final_norm``."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -96,18 +102,26 @@ def backbone(model: Transformer, x, cfg: ModelConfig):
     return L.apply_norm(model.final_norm, x, cfg)
 
 
+def _logits(model: Transformer, batch, cfg: ModelConfig):
+    x = backbone(model, _inputs(model, batch, cfg), cfg)
+    return L.unembed(model.embed, x, cfg)
+
+
 def forward(model: Transformer, batch, cfg: ModelConfig):
-    """-> logits (B, S, V) float32. On a mesh the non-layer parameters
-    (the embedding, ``lm_head``, the final norm) are gathered around the
-    block loop (``act.gathered``), each block inside ``layers.remat``."""
+    """-> logits (B, S, V) float32 (on a mesh with a "model" axis the
+    rank's vocab slice). On a mesh the non-layer parameters (the
+    embedding, ``lm_head``, the final norm) are gathered over the data
+    axes around the block loop (``act.gathered``), each block inside
+    ``layers.remat``."""
     with act.gathered(model, "embed", "final_norm"):
-        x = backbone(model, _inputs(model, batch, cfg), cfg)
-        return L.unembed(model.embed, x, cfg)
+        return _logits(model, batch, cfg)
 
 
 def loss_fn(model: Transformer, batch, cfg: ModelConfig):
-    logits = forward(model, batch, cfg)
-    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    with act.gathered(model, "embed", "final_norm"):
+        logits = _logits(model, batch, cfg)
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               vocab=cfg.vocab)
 
 
 # ------------------------------------------------------------- serving -----
@@ -136,16 +150,18 @@ def decode_step(model: Transformer, cache: dict, tokens, cfg: ModelConfig):
     cache's ``pos`` is a scalar or (B,) per-slot positions. Returns
     (logits (B, V) float32, the cache with ``pos + 1``). On a mesh the
     non-layer parameters are gathered for the call and each block's
-    inside the loop (``act.gathered``)."""
+    inside the loop (``act.gathered``); with a "model" axis the cache is
+    the rank's block (``serve.step``) and the logits are gathered over
+    the vocab (``layers.whole_logits``)."""
     with act.gathered(model, "embed", "final_norm"):
         x = L.embed(model.embed, tokens[:, None], cfg)    # (B, 1, D)
         pos = cache["pos"]
-        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        slots = L.decode_slots(x, L.cache_rows(cache["k"]), pos, cfg)
         for i, blk in enumerate(model.layers):
             with act.gathered(blk):
                 x = _decode_block(blk, x, cache, i, pos, cfg, slots)
         x = L.apply_norm(model.final_norm, x, cfg)
-        logits = L.unembed(model.embed, x, cfg)[:, 0]     # (B, V)
+        logits = L.whole_logits(L.unembed(model.embed, x, cfg)[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}
 
 
@@ -170,7 +186,9 @@ def prefill(model: Transformer, batch, cfg: ModelConfig,
             max_len: int | None = None, dtype=torch.bfloat16):
     """Populate a KV cache from a full prompt; returns (cache,
     last_logits). The cache holds ``dtype`` K/V zero-padded to
-    ``max_len`` (no int8 cache, as in the reference) and ``pos`` = S."""
+    ``max_len`` (no int8 cache, as in the reference) and ``pos`` = S. The
+    engine's single-device prefill (a mesh's prefill step is
+    ``serve.step.make_prefill_step``)."""
     x = _inputs(model, batch, cfg)
     b, s, _ = x.shape
     max_len = max_len or s

@@ -9,12 +9,19 @@ On a mesh (``mesh=``; the dry run's cells) the parameters are DTensors
 placed by ``sharding.rules`` and every input is placed too (the batch by
 ``rules.batch_specs``, the cache by ``rules.cache_specs``). As the mesh
 trainer, a rank computes on its own batch shard with plain tensors and
-gathers the weights block by block (``act.gathered`` in each family's
-decode loop, ``act.gathering`` in ``forward``): the port has no
-tensor parallelism. So a decode step first gathers each cache leaf's
-shard over the mesh axes other than the batch's (the KV heads or
-sequence the reference keeps split over "model"), and hands back each
-leaf in its own placements, a view of the rank's block: no collective.
+gathers the weights block by block over the data axes (``act.gathered``
+in each family's decode loop, ``act.gathering`` in ``forward``).
+
+The tensor-parallel families (dense, MoE) keep the "model" shards: a
+decode step reads and writes the rank's block of each cache leaf in
+place (no collective), split as ``cache_specs`` splits it: over the KV
+heads where they divide "model" (the rank attends with its heads), else
+over the sequence (the rank attends over its rows, the partials combined
+over "model"; the new token written by the rank that holds its
+position). The logits of both steps are gathered over the vocab for the
+last position alone. The other families gather each cache leaf's shards
+over the mesh axes other than the batch's first and hand back each leaf
+in its own placements, a view of the rank's block: no collective.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import contextlib
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from repro_torch.models import get_family
+from repro_torch.models import get_family, layers as L
 from repro_torch.models.base import ModelConfig
 from repro_torch.sharding import act
 
@@ -44,6 +51,24 @@ def _local(x):
 def _tree(fn, tree):
     return ({k: _tree(fn, v) for k, v in tree.items()}
             if isinstance(tree, dict) else fn(tree))
+
+
+def _kv_split(cache: dict):
+    """How a tensor-parallel family's cache is split over "model": its
+    ``k`` leaf's placement there (``"heads"``: dim 3, ``"seq"``: dim 2,
+    None: replicated). A split over the head dim (4) has no attention
+    route and raises."""
+    k = cache["k"]
+    if not isinstance(k, DTensor) or "model" not in \
+            k.device_mesh.mesh_dim_names:
+        return None
+    pl = k.placements[k.device_mesh.mesh_dim_names.index("model")]
+    if not isinstance(pl, Shard):
+        return None
+    if pl.dim not in (2, 3):
+        raise ValueError(f"a KV cache split over dim {pl.dim} by 'model': "
+                         "only its KV heads (3) or its sequence (2) can be")
+    return "seq" if pl.dim == 2 else "heads"
 
 
 def _batch_only(x):
@@ -85,6 +110,13 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
         with _on_mesh(mesh):
             return _prefill(params, batch)
 
+    def _last(params, batch):
+        """The last position's logits over the whole vocab (a
+        vocab-parallel rank's slices gathered)."""
+        logits = fam.forward(params, batch, cfg)[:, -1]
+        with act.model_axis(params):
+            return L.whole_logits(logits, cfg)
+
     def _prefill(params, batch):
         if cfg.family == "whisper":
             enc_out = fam.encode(params, batch["frames"], cfg)
@@ -94,7 +126,7 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
             cache = fam.prefill_cross(params, enc_out, cache, cfg)
             bos = torch.zeros((b,), dtype=torch.long, device=dev)
             return fam.decode_step(params, cache, bos, cfg)[0]
-        return fam.forward(params, batch, cfg)[:, -1]
+        return _last(params, batch)
 
     return prefill
 
@@ -108,15 +140,24 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     def decode(params, cache, tokens):
         if mesh is None:
             return fam.decode_step(params, cache, tokens, cfg)
-        local = _tree(_batch_only, cache)
-        with _on_mesh(mesh):
+        if act.is_tensor_parallel(params):
+            local, split = _tree(_local, cache), _kv_split(cache)
+        else:
+            local, split = _tree(_batch_only, cache), None
+        with _on_mesh(mesh), act.kv_split(split):
             logits, new = fam.decode_step(params, local, _local(tokens), cfg)
-        return logits, _merge(new, cache)
+        return logits, _merge(new, cache, act.is_tensor_parallel(params))
 
     return decode
 
 
-def _merge(new, old):
+def _merge(new, old, whole_block: bool):
+    """The step's cache leaves back in ``old``'s placements: a rank's
+    block as it is (``whole_block``), or a batch-only block re-split."""
     if isinstance(new, dict):
-        return {k: _merge(v, old[k]) for k, v in new.items()}
+        return {k: _merge(v, old[k], whole_block) for k, v in new.items()}
+    if whole_block and isinstance(old, DTensor):
+        return DTensor.from_local(new, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
     return _replace(new, old)

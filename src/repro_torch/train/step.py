@@ -13,9 +13,15 @@ layer.
 On a mesh (``mesh=``; the parameters and AdamW state are DTensors placed
 by ``sharding.rules``, ``launch/train.build_trainer``) every rank runs the
 same step on its own shard of each microbatch (``rules.batch_specs``), its
-blocks gathering their weights one at a time (``sharding.act``); the
-gradients reach ``.grad`` in the parameters' placements, averaged over the
-data ranks, and the loss is averaged over them too.
+blocks gathering their weights one at a time over the data axes
+(``sharding.act``). The dense and MoE families keep the "model" shards
+and compute the rank's heads, d_ff columns, experts and vocab slice
+(tensor and expert parallelism; the other families gather their blocks
+over "model" too). The gradients reach ``.grad`` in the parameters'
+placements, averaged over the data ranks (a "model"-sharded parameter's
+gradient is its shard's, a replicated one's the same on every "model"
+rank), and the loss, the same on every "model" rank, is averaged over the
+data axes alone.
 """
 from __future__ import annotations
 

@@ -95,17 +95,17 @@ def _tensors(x) -> list[torch.Tensor]:
     return []
 
 
-def _group_size(args) -> int:
-    """The size of the group among an op's arguments: a ``ProcessGroup``
-    script object (c10d) or a group name (functional)."""
+def _group(args) -> dist.ProcessGroup:
+    """The group among an op's arguments: a ``ProcessGroup`` script object
+    (c10d) or a group name (functional)."""
     for a in args:
         if isinstance(a, torch.ScriptObject) and "ProcessGroup" in str(
                 a._type()):
-            return dist.ProcessGroup.unbox(a).size()
+            return dist.ProcessGroup.unbox(a)
     name = args[-1]
     if isinstance(name, str):
         from torch.distributed.distributed_c10d import _resolve_process_group
-        return _resolve_process_group(name).size()
+        return _resolve_process_group(name)
     raise ValueError(f"no group among the arguments {args!r}")
 
 
@@ -127,8 +127,9 @@ def _caller() -> str:
 
 class CollectiveCounter(TorchDispatchMode):
     """``with CollectiveCounter() as cc: fn()`` records every collective
-    ``fn`` issues: its reference op name, wire bytes a device, result shape
-    and the stack line that asked for it."""
+    ``fn`` issues: its reference op name, wire bytes a device, result shape,
+    the stack line that asked for it and its group's name (``group``: a
+    mesh axis's is ``mesh.get_group(axis).group_name``)."""
 
     def __init__(self):
         super().__init__()
@@ -145,13 +146,15 @@ class CollectiveCounter(TorchDispatchMode):
             res = _tensors(out)
         else:
             return out
-        g = _group_size(args)
+        group = _group(args)
+        g = group.size()
         r = sum(t.numel() * t.element_size() for t in res)
         shape = ",".join(f"{_SHORT.get(t.dtype, str(t.dtype))}"
                          f"[{','.join(map(str, t.shape))}]" for t in res)
         self.records.append({"op": op, "bytes": wire_bytes(op, r, g),
                              "mult": 1, "shape": shape,
-                             "line": _caller()[:160]})
+                             "line": _caller()[:160],
+                             "group": group.group_name})
         return out
 
     def collective_bytes(self) -> dict:
@@ -168,7 +171,18 @@ class CollectiveCounter(TorchDispatchMode):
     def top_collectives(self, k: int = 12) -> list[dict]:
         """The k largest collectives (wire bytes), with the reference's row
         keys ``op``, ``bytes``, ``mult`` (1) and ``shape``, and the stack
-        line under ``line``."""
+        line and group name under ``line`` and ``group``."""
         rows = sorted(self.records, key=lambda r: -r["bytes"])
-        return [{k_: r[k_] for k_ in ("op", "bytes", "mult", "shape", "line")}
+        return [{k_: r[k_] for k_ in ("op", "bytes", "mult", "shape", "line",
+                                      "group")}
                 for r in rows[:k]]
+
+    def by_group(self) -> dict:
+        """-> {group name: {"bytes": int, "counts": {op: n}}}: the wire
+        bytes a device and the calls over each group."""
+        out: dict[str, dict] = {}
+        for r in self.records:
+            g = out.setdefault(r["group"], {"bytes": 0, "counts": {}})
+            g["bytes"] += r["bytes"]
+            g["counts"][r["op"]] = g["counts"].get(r["op"], 0) + 1
+        return out

@@ -132,7 +132,7 @@ def measure(fn, *inputs, fake_mode=None) -> tuple[object, dict]:
     dicts of them): the tracker counts them as alive from the start.
     Returns ``(fn's result, record)``; the record holds ``flops``,
     ``bytes``, ``collectives`` (``collective_bytes()``), ``top_collectives``,
-    ``peak_bytes`` (traced), ``argument_bytes``, ``sdpa_routes`` and the
+    ``collectives_by_group`` (``by_group()``), ``peak_bytes`` (traced), ``argument_bytes``, ``sdpa_routes`` and the
     call's host seconds ``trace_s``."""
     from torch.distributed._tools.mem_tracker import MemTracker
     mt = MemTracker()
@@ -157,6 +157,7 @@ def measure(fn, *inputs, fake_mode=None) -> tuple[object, dict]:
         "bytes": float(ob.bytes),
         "collectives": cc.collective_bytes(),
         "top_collectives": cc.top_collectives(),
+        "collectives_by_group": cc.by_group(),
         "peak_bytes": int(max((v["Total"] for v in peak.values()),
                               default=0)),
         "argument_bytes": argument_bytes(*inputs),
