@@ -120,7 +120,8 @@ N1. The paper's neighbor table (Alg. 6) of both tables of the exact 1M
     then points anchored on live rows (4,096, more until every table
     gains a bucket) ingested with W kept, and Alg. 9's update ``torch.equal`` to
     a fresh build of the old codes followed by the new ones and to its
-    plain version, timed against the build, the plain version and its
+    plain version, timed against the build, the plain version,
+    ``torch.cdist(p=0)`` of the new codes against the live ones and its
     bound. ``neighbor_dists`` launches are counted over the builds and
     updates. Then the build at n_valid = 0 (the pure zero fill, against
     the table's byte bound) and at n_valid = B, each ``torch.equal`` to
@@ -318,7 +319,24 @@ M1. The mesh trainer (``launch.train.build_trainer(mesh=...)``: DTensor
     or a decode off its route (the sequence route's combine,
     ``layers._split_attend``, counted). Logs per rank each step's
     CUDA-event and host ms, the largest per-leaf gaps, a step's
-    collectives (by group) and the peak.
+    collectives (by group) and the peak. Then the other families on the
+    same ranks (``m1_fam_rank``; the plain runs first, here, each freed
+    before the next): rwkv6-1.6b (4 layers, 8 of its 32 heads a rank),
+    recurrentgemma-9b (5 layers: a group and a tail of 2; its LRU
+    channels and 4 of 16 heads a rank, K / V gathered) and
+    whisper-medium (4 + 4 layers), full width, float32: one train step
+    (M1_FAM_TRAIN) against the plain step, a second one timed, then a
+    prefill of 4 slots and M1_DECODE_STEPS decode steps from a random
+    cache at M1_FAM_START (recurrentgemma from 2,046: its K/V ring's
+    writes pass from rank 3's rows to rank 0's). Fatal: loss or grad
+    norm beyond M1_F32_TOL, a leaf's gradient norm beyond M1_FAM_LEAF_TOL;
+    prefill and decode logits beyond M1_F32_TOL of their largest
+    (whisper's prefill, whose cross K/V the step writes in bfloat16,
+    M1_FAM_PREFILL_BF16); a state leaf the steps write beyond
+    M1_FAM_STATE_TOL of its largest element (each rank holds its block
+    against the plain cache's); an all-gather over "model" other than an
+    activation's; recurrentgemma's decode off the sequence route. Logs
+    each family's step ms, collectives a step by group and peak a rank.
 
 R1. The dry runs, each in a process of its own (a fake process group,
     apart from M1's NCCL group): ``launch.dryrun`` of ``R1_CELLS``
@@ -2463,6 +2481,12 @@ def phase_neighbors(torch, state, cfg, seed):
         raise AssertionError("Alg. 9's update differs from its plain version")
     upd_ms = cuda_ms(torch, update_both)
     upd_plain_ms = cuda_ms(torch, plain_update_both, iters=3)
+    # the library yardstick: one torch.cdist(p=0) a table of the new codes
+    # against the live ones (the strips, unmasked, as float)
+    fnew = [codes_all[t][nbs[t]:nbs2[t]].float() for t in range(nl)]
+    flive = [codes_all[t][:nbs2[t]].float() for t in range(nl)]
+    upd_lib_ms = cuda_ms(torch, lambda: [
+        torch.cdist(a, b, p=0) for a, b in zip(fnew, flive)], iters=3)
     # bytes: both strips of each table written once, its live codes read
     # once; operations: the compares of the new rows against the live ones
     upd = [ops.neighbor_dists_work(cap2, k, n2, n1, n2)
@@ -2500,7 +2524,9 @@ def phase_neighbors(torch, state, cfg, seed):
         f"{[r * (2 * cap2 - r) for r in new_rows]} entries): {upd_ms:.4f} ms "
         f"against the build's {res['ms']:.4f} ms ({upd_ms / res['ms']:.4f}); "
         f"device {upd_us:.2f} us a launch against the build's {dev_us:.2f}; "
-        f"plain {upd_plain_ms:.4f} ms (torch.equal to the kernel's); bound "
+        f"plain {upd_plain_ms:.4f} ms (torch.equal to the kernel's); "
+        f"torch.cdist(p=0) of the new codes against the live ones "
+        f"{upd_lib_ms:.4f} ms; bound "
         f"{max(upd_tb, upd_ti):.6f} ms ({'bytes' if upd_tb >= upd_ti else 'operations'}: "
         f"bytes {upd_tb:.6f}, compares {upd_ti:.6f})")
     return res, launches
@@ -3769,8 +3795,8 @@ def family_checks(torch, model, cfg, batch, tag):
             x = L.apply_norm(blk.ln1, L.embed(model.embed, batch["tokens"],
                                               cfg), cfg)
             xx = F.pad(x, (0, 0, 1, 0))[:, :-1]
-            r, k, v, _, w = R._tm_projections(blk.tm, x, xx, cfg)
-            u = blk.tm.u.reshape(cfg.rwkv_heads, 64)
+            r, k, v, _, w, u, _ = R._tm_projections(
+                blk.tm, x, xx, cfg, R._route(blk.tm, cfg))
             got = R._wkv_chunked(r, k, v, w, u, cfg.rwkv_chunk)
             want = R._wkv_sequential(r, k, v, w, u)
             d = float((got - want).abs().max())
@@ -4251,6 +4277,50 @@ M1_SEQ_START = M1_DECODE_LEN // M1_TP_RANKS - M1_DECODE_STEPS // 2
 M1_LEAF_GRAD_TOL = 2e-2
 M1_LEAF_CHANGE_TOL = 0.125
 M1_PNORM_TOL = 2.5e-7
+# The other families on the same (1, 4) mesh, at full width, depth cut,
+# float32 compute: rwkv6-1.6b (32 heads, 8 a rank), recurrentgemma-9b
+# (one group and a tail of 2; its LRU channels, 4 of its 16 heads a rank,
+# K / V gathered: KV = 1) and whisper-medium (4 + 4 layers, 4 of its 16
+# heads and KV heads a rank; its vocab of 51,865 whole on every rank). One
+# train step each (M1_FAM_TRAIN: rwkv6's chunked WKV over 4 chunks,
+# recurrentgemma's windowed attention past its window of 2,048, whisper's
+# 1,500 frames and 448 tokens) against the plain step: loss and grad norm
+# within M1_F32_TOL (relative), each leaf's gradient norm within
+# M1_FAM_LEAF_TOL of the plain one's (relative, floored at
+# M1_FAM_LEAF_FLOOR of the largest leaf's: whisper's key biases have a
+# gradient that is zero but for rounding); then a prefill of 4 slots and
+# M1_DECODE_STEPS decode steps from a random cache at M1_FAM_START
+# (recurrentgemma's ring of 2,048 rows, 512 a rank, from 2,046: its writes
+# pass from rank 3's rows to rank 0's): logits within M1_F32_TOL of their
+# largest (whisper's prefill within M1_FAM_PREFILL_BF16 of it: its step
+# writes the cross K/V in bfloat16, where a last-bit difference moves an
+# element by 2^-8 of itself), each state leaf the steps write within
+# M1_FAM_STATE_TOL of its largest element. The limits keep ~10x over the
+# float32 readings of the CPU test (tests/test_torch_tensor_parallel_
+# families.py: 2e-5 of a leaf, 7.4e-5 for whisper's prefill); a sum over
+# "model" that is missing or doubled is off by tens of percent.
+# rwkv6's gradients at full width are determined by float32 arithmetic
+# only to ~1e-3 on the card: the plain step with its sequential WKV in
+# place of the chunked one (the same function) moves the grad norm and
+# the first layers' leaves (u, mu, mu_x, the ddlerp's LoRA) by more than
+# M1_F32_TOL, at the same loss. So its grad norm and each leaf are held
+# within that spread, measured and logged in the same run
+# (``m1_fam_spread``), where it exceeds M1_F32_TOL / M1_FAM_LEAF_TOL
+M1_FAMILIES = {"rwkv6-1.6b": dict(n_layers=4),
+               "recurrentgemma-9b": dict(n_layers=5),
+               "whisper-medium": dict(n_layers=4, enc_layers=4)}
+M1_FAM_TRAIN = {"rwkv6-1.6b": (2, 512), "recurrentgemma-9b": (1, 4096),
+                "whisper-medium": (1, 448)}
+M1_FAM_FRAMES = 1500
+M1_FAM_PROMPT = 256
+M1_FAM_CACHE = {"rwkv6-1.6b": 256, "recurrentgemma-9b": 2048,
+                "whisper-medium": 448}
+M1_FAM_START = {"rwkv6-1.6b": 0, "recurrentgemma-9b": 2046,
+                "whisper-medium": 64}
+M1_FAM_LEAF_TOL = 1e-3
+M1_FAM_LEAF_FLOOR = 1e-4
+M1_FAM_STATE_TOL = 1e-4
+M1_FAM_PREFILL_BF16 = 1e-3
 
 
 def phase_mesh_training(torch, seed, dev="cuda"):
@@ -4567,6 +4637,235 @@ def m1_leaf_gaps(want: dict, got: dict) -> dict:
     return out
 
 
+def m1_fam_cfg(arch, smoke=False):
+    return m1_cfg(arch, smoke, dtype="float32", **M1_FAMILIES[arch])
+
+
+def m1_fam_shapes(cfg, smoke=False) -> dict:
+    """The family checks' shapes: ``train`` (batch, tokens), ``frames``
+    (whisper's encoder length), ``prompt`` (the prefill's tokens),
+    ``cache`` (its max length) and ``start`` (the first decode position).
+    ``smoke``: the CPU rehearsal's, cut to the smoke configs (rglru's
+    window of 16 from 14)."""
+    arch = cfg.name
+    if smoke:
+        win = cfg.window or 16
+        train = {"rglru": (1, 3 * win), "rwkv6": (1, cfg.rwkv_chunk + 8)}
+        return dict(train=train.get(cfg.family, (2, 16)),
+                    frames=24, prompt=8, cache=win,
+                    start=win - 2 if cfg.family == "rglru" else 3)
+    return dict(train=M1_FAM_TRAIN[arch], frames=M1_FAM_FRAMES,
+                prompt=M1_FAM_PROMPT, cache=M1_FAM_CACHE[arch],
+                start=M1_FAM_START[arch])
+
+
+def m1_fam_batch(torch, cfg, shp, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    t = torch.randint(0, cfg.vocab, shp["train"], generator=g, device=dev)
+    batch = {"tokens": t, "labels": t}
+    if cfg.input_mode == "encdec":
+        batch["frames"] = torch.randn(shp["train"][0], shp["frames"],
+                                      cfg.d_model, generator=g, device=dev)
+    return batch
+
+
+def m1_event_ms(torch, fn, cuda):
+    """(``fn()``, its ms: CUDA events on the card, the host clock on the
+    CPU)."""
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    out = fn()
+    if not cuda:
+        return out, (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def m1_fam_train(torch, cfg, shp, seed, dev, mesh=None):
+    """Two train steps of ``cfg`` (``mesh``: sharded by the rules) on one
+    batch. Step 1 under ``CollectiveCounter``, keeping each leaf's
+    gradient norm (the ``grad_transform`` hook: ``adamw.global_norm`` of a
+    one-leaf dict, an all-reduce on a DTensor); step 2 timed. -> dict of
+    step 1's loss, grad norm, leaf norms and collectives, step 2's ms."""
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.utils.comms import CollectiveCounter
+    opt_cfg = adamw.AdamWConfig(**T1_OPT)
+    model, opt, _ = train.build_trainer(cfg, opt_cfg, seed=seed, device=dev,
+                                        mesh=mesh)
+    leaves = {}
+
+    def keep(grads):
+        if not leaves:
+            leaves.update({k: float(adamw.global_norm({"leaf": g}))
+                           for k, g in grads.items()})
+        return grads
+    step = train.make_train_step(cfg, opt_cfg, grad_transform=keep,
+                                 mesh=mesh)
+    batch = m1_fam_batch(torch, cfg, shp, seed, dev)
+    with CollectiveCounter() as cc:
+        _, _, m = step(model, opt, batch)
+    out = {"loss": float(m["loss"]), "gn": float(m["grad_norm"]),
+           "leaves": dict(leaves), "collectives": cc.collective_bytes(),
+           "by_group": cc.by_group(),
+           "gathers": sorted({(r["group"], r["line"]) for r in cc.records
+                              if r["op"] == "all-gather"})}
+    _, out["ms"] = m1_event_ms(torch, lambda: step(model, opt, batch),
+                               dev.type == "cuda")
+    return out
+
+
+def m1_fam_spread(torch, cfg, shp, seed, dev, tr) -> dict:
+    """The plain step's own float32 spread, where the family has a second
+    algorithm for the same function: rwkv6's step with the sequential WKV
+    in place of the chunked one, against ``tr`` (the chunked step): the
+    relative gaps of its grad norm (``"gn"``) and of each leaf's gradient
+    norm (``"leaves"``, floored as the checks floor them). Zero gaps for
+    the other families."""
+    if cfg.family != "rwkv6" or shp["train"][1] <= cfg.rwkv_chunk:
+        return {"gn": 0.0, "leaves": {k: 0.0 for k in tr["leaves"]}}
+    seq = m1_fam_train(torch, cfg.replace(rwkv_chunk=shp["train"][1]), shp,
+                       seed, dev)
+    return {"gn": abs(seq["gn"] - tr["gn"]) / tr["gn"],
+            "leaves": m1_leaf_rel(tr["leaves"], seq["leaves"])}
+
+
+def m1_leaf_rel(want: dict, got: dict) -> dict:
+    """Each leaf's relative gap of its gradient norm, floored at
+    M1_FAM_LEAF_FLOOR of the largest leaf's."""
+    top = max(want.values())
+    return {k: abs(got[k] - v) / max(v, M1_FAM_LEAF_FLOOR * top)
+            for k, v in want.items()}
+
+
+def m1_fam_serve(torch, cfg, shp, seed, dev, mesh=None):
+    """A prefill of 4 slots and M1_DECODE_STEPS decode steps from a random
+    cache at ``shp["start"]`` (``mesh``: weights, batch and cache placed
+    by the rules) -> (prefill logits, the steps' logits (steps, B, V), on
+    the host; the cache leaves the steps write, each the rank's block;
+    the sequence route's combines; the steps' ms)."""
+    from repro_torch.models import get_family, layers
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+    from repro_torch.sharding import rules
+    fam = get_family(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    model = fam.init(cfg, g, dev, param_dtype=torch.float32)
+    slots = M1_DECODE_SLOTS
+    kw = {}
+    if cfg.input_mode == "encdec":
+        batch = {"frames": torch.randn(slots, shp["frames"], cfg.d_model,
+                                       generator=g, device=dev)}
+        kw["enc_len"] = shp["frames"]
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab,
+                                         (slots, shp["prompt"]),
+                                         generator=g, device=dev)}
+    cache = fam.init_cache(cfg, slots, shp["cache"], dtype=torch.float32,
+                           device=dev, **kw)
+    flat = m1_flat(cache)
+    for v in flat.values():
+        if v.is_floating_point():
+            v.copy_(torch.randn(v.shape, generator=g, device=dev))
+    flat["pos"].fill_(shp["start"])
+    toks = torch.randint(0, cfg.vocab, (M1_DECODE_STEPS, slots),
+                         generator=g, device=dev)
+    if mesh is not None:
+        for name, spec in rules.param_specs(model, mesh).items():
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            mod.register_parameter(leaf, torch.nn.Parameter(rules.place(
+                mod._parameters[leaf].detach(), mesh, spec.placements)))
+        cspecs = rules.cache_specs(flat, mesh)
+        flat = {k: rules.place(v, mesh, cspecs[k].placements)
+                for k, v in flat.items()}
+    cache = m1_nest(flat)
+    prefill = make_prefill_step(cfg, mesh=mesh)(model, batch).cpu()
+    step = make_decode_step(cfg, mesh=mesh)
+    combines = [0]
+    split_attend = layers._split_attend
+
+    def counted(*a):
+        combines[0] += 1
+        return split_attend(*a)
+    layers._split_attend = counted
+    out = []
+    try:
+        def steps():
+            c = cache
+            for t in toks:
+                logits, c = step(model, c, t)
+                out.append(logits)
+            return c
+        cache, ms = m1_event_ms(torch, steps, dev.type == "cuda")
+    finally:
+        layers._split_attend = split_attend
+    written = {k: (v.to_local() if hasattr(v, "to_local") else v)
+               for k, v in m1_flat(cache).items()
+               if k not in ("pos", "xk", "xv")}
+    return prefill, torch.stack(out).cpu(), written, combines[0], ms
+
+
+def m1_flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(m1_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def m1_nest(flat):
+    out = {}
+    for k, v in flat.items():
+        *head, leaf = k.split(".")
+        d = out
+        for h in head:
+            d = d.setdefault(h, {})
+        d[leaf] = v
+    return out
+
+
+def m1_fam_rank(torch, mesh, spec, dev, smoke, free, peak):
+    """A rank's family checks: each family's sharded train step, prefill
+    and decode steps, held here against the plain ones the parent saved
+    (the state leaves block by block: no leaf is gathered). -> record."""
+    from repro_torch.sharding import rules
+    out = {}
+    for arch in M1_FAMILIES:
+        cfg = m1_fam_cfg(arch, smoke)
+        shp = m1_fam_shapes(cfg, smoke)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        rec = m1_fam_train(torch, cfg, shp, spec["seed"], dev, mesh)
+        rec["gathers"] = [list(x) for x in rec["gathers"]]
+        rec["peak_train_gib"] = peak()
+        free()
+        prefill, logits, written, combines, ms = m1_fam_serve(
+            torch, cfg, shp, spec["seed"], dev, mesh)
+        want = torch.load(spec[f"fam.{arch}"])
+        rec["prefill_err"] = float((prefill - want["prefill"]).abs().max())
+        rec["decode_err"] = float((logits - want["logits"]).abs().max())
+        rec["combines"], rec["decode_ms"] = combines, ms
+        state = {}
+        for k, v in written.items():
+            full = want["state"][k]
+            mine = rules.local_chunk(full, mesh, rules.cache_specs(
+                {k: full}, mesh)[k].placements)
+            state[k] = [float((v.cpu() - mine).abs().max()),
+                        float(full.abs().max()), list(v.shape)]
+        rec["state"] = state
+        rec["peak_gib"] = peak()
+        out[arch] = rec
+        free()
+    return out
+
+
 def m1_tp_rank(rank, spec):
     """One rank of M1's tensor-parallel checks (spawned by
     ``distributed.run_ranks``, gloo): the (1, M1_TP_RANKS) mesh trainer of
@@ -4635,6 +4934,7 @@ def m1_tp_rank(rank, spec):
         rec[f"{name}_scale"] = float(want.abs().max())
         free()
     rec["peak_all_gib"] = peak()
+    rec["families"] = m1_fam_rank(torch, mesh, spec, dev, smoke, free, peak)
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as fh:
         json.dump(rec, fh)
 
@@ -4658,6 +4958,7 @@ def m1_tensor_parallel(torch, seed, dev, smoke=False):
     from repro_torch.optim import adamw
     tag = f"M1 TP ({M1_TP_RANKS} gloo ranks, a (1, {M1_TP_RANKS}) mesh)"
     cfg = m1_cfg(T1_ARCH, smoke, n_layers=M1_LAYERS)
+    cuda = dev.type == "cuda"
 
     def free():
         gc.collect()
@@ -4674,6 +4975,25 @@ def m1_tensor_parallel(torch, seed, dev, smoke=False):
         decodes[name] = m1_decode_logits(torch, dcfg, seed, dev, None,
                                          start)[0]
         free()
+    fams = {}
+    for arch in M1_FAMILIES:
+        fcfg = m1_fam_cfg(arch, smoke)
+        shp = m1_fam_shapes(fcfg, smoke)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        tr = m1_fam_train(torch, fcfg, shp, seed, dev)
+        tr["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                          if cuda else 0.0)
+        free()
+        tr["spread"] = m1_fam_spread(torch, fcfg, shp, seed, dev, tr)
+        free()
+        prefill, logits, written, _, ms = m1_fam_serve(torch, fcfg, shp,
+                                                       seed, dev)
+        fams[arch] = (tr, {"prefill": prefill, "logits": logits,
+                           "state": {k: v.cpu() for k, v in
+                                     written.items()}}, ms)
+        del written
+        free()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
         spec = dict(seed=seed, out=out, dev=str(dev), smoke=smoke,
                     moe_calls=os.path.join(out, "moe_calls.pt"))
@@ -4681,6 +5001,9 @@ def m1_tensor_parallel(torch, seed, dev, smoke=False):
         for name, logits in decodes.items():
             spec[name] = os.path.join(out, f"{name}.pt")
             torch.save(logits, spec[name])
+        for arch, (_, served, _) in fams.items():
+            spec[f"fam.{arch}"] = os.path.join(out, f"fam_{arch}.pt")
+            torch.save(served, spec[f"fam.{arch}"])
         t0 = time.perf_counter()
         D.run_ranks(m1_tp_rank, M1_TP_RANKS, args=(spec,), backend="gloo",
                     timeout=M1_TP_TIMEOUT)
@@ -4766,9 +5089,97 @@ def m1_tensor_parallel(torch, seed, dev, smoke=False):
             f"the sequence route's combines a rank {combines} (want {want})")
         if derr > M1_F32_TOL * dscale or any(c != want for c in combines):
             bad.append(f"{name}: {derr:.3e}, combines {combines}")
+    bad += m1_fam_checks(tag, fams, recs, smoke)
     if bad:
         raise SystemExit(f"{tag}: the sharded steps part from the plain "
                          f"ones: {bad}")
+
+
+def m1_fam_checks(tag, fams, recs, smoke) -> list:
+    """Log each family's sharded step, prefill and decode against the
+    plain ones (``fams``: arch -> (train record, served, decode ms)) and
+    return what is off."""
+    bad = []
+    for arch, (tr, served, plain_ms) in fams.items():
+        cfg = m1_fam_cfg(arch, smoke)
+        shp = m1_fam_shapes(cfg, smoke)
+        lscale = float(served["logits"].abs().max())
+        pscale = float(served["prefill"].abs().max())
+        ptol = M1_FAM_PREFILL_BF16 if cfg.family == "whisper" \
+            else M1_F32_TOL
+        spread = tr["spread"]
+        gn_tol = max(M1_F32_TOL, spread["gn"])
+        seq = cfg.family == "rglru"
+        want_combines = (cfg.n_layers // 3) * M1_DECODE_STEPS if seq else 0
+        log(f"{tag} {arch} at {m1_depth(cfg)} (full width, float32; "
+            f"{smi_line()}): plain step {tr['ms']:.3f} ms (events; step 2 "
+            f"of {shp['train'][0]} x {shp['train'][1]} tokens"
+            + (f", {shp['frames']} frames" if cfg.family == "whisper"
+               else "") + f"), peak {tr['peak_gib']:.3f} GiB; plain "
+            f"{M1_DECODE_STEPS} decode steps of {M1_DECODE_SLOTS} slots "
+            f"from position {shp['start']} {plain_ms:.3f} ms"
+            + (f"; the plain step's own spread (sequential WKV against the "
+               f"chunked one): grad norm {spread['gn']:.3e}, largest leaf "
+               f"{max(spread['leaves'].values()):.3e}"
+               if spread["gn"] else ""))
+        for r in recs:
+            f = r["families"][arch]
+            lrel = abs(f["loss"] - tr["loss"]) / abs(tr["loss"])
+            grel = abs(f["gn"] - tr["gn"]) / tr["gn"]
+            rel = m1_leaf_rel(tr["leaves"], f["leaves"])
+            gaps = sorted(((g, k) for k, g in rel.items()), reverse=True)
+            over = [(g, k) for g, k in gaps
+                    if g > max(M1_FAM_LEAF_TOL, spread["leaves"][k])]
+            perr, derr = f["prefill_err"] / pscale, f["decode_err"] / lscale
+            serr = max(((e / s if s else e), k)
+                       for k, (e, s, _) in f["state"].items())
+            model_coll = f["by_group"].get(r["model_group"], {})
+            model_gathers = sorted({line for grp, line in f["gathers"]
+                                    if grp == r["model_group"]})
+            log(f"  rank {r['rank']}: step 1 loss {f['loss']:.7f} / "
+                f"{tr['loss']:.7f} ({lrel:.3e}, tol {M1_F32_TOL}), grad "
+                f"norm {f['gn']:.7f} / {tr['gn']:.7f} ({grel:.3e}, tol "
+                f"{gn_tol:.3e}) (mesh / plain); over {len(gaps)} leaves the "
+                f"largest relative gaps of a gradient norm "
+                + ", ".join(f"{g:.3e} ({k}; spread "
+                            f"{spread['leaves'][k]:.3e})" for g, k in gaps[:3])
+                + f" (tol {M1_FAM_LEAF_TOL} or the leaf's spread); step 2 "
+                f"{f['ms']:.3f} ms "
+                f"(events); a step's collectives "
+                f"{json.dumps(f['collectives'])}, over 'model' "
+                f"{json.dumps(model_coll)}; all-gathers over 'model' from "
+                f"{model_gathers}; peak {f['peak_train_gib']:.3f} GiB "
+                f"(training), {f['peak_gib']:.3f} GiB (with the serve "
+                f"checks); prefill logits {perr:.3e} of their largest "
+                f"{pscale:.3f} (tol {ptol}); decode logits {derr:.3e} of "
+                f"{lscale:.3f} (tol {M1_F32_TOL}), {f['decode_ms']:.3f} ms "
+                f"for the {M1_DECODE_STEPS} steps; the state's largest gap "
+                f"{serr[0]:.3e} of its largest element ({serr[1]}; tol "
+                f"{M1_FAM_STATE_TOL}; the rank's blocks "
+                + ", ".join(f"{k} {tuple(v[2])}"
+                            for k, v in f["state"].items())
+                + f"); the sequence route's combines {f['combines']} "
+                f"(want {want_combines})")
+            if lrel > M1_F32_TOL or grel > gn_tol or over:
+                bad.append(f"{arch} rank {r['rank']} step: loss {lrel:.3e}, "
+                           f"grad norm {grel:.3e}, leaves {over[:3]}")
+            if perr > ptol or derr > M1_F32_TOL \
+                    or serr[0] > M1_FAM_STATE_TOL \
+                    or f["combines"] != want_combines:
+                bad.append(f"{arch} rank {r['rank']} serve: prefill "
+                           f"{perr:.3e}, decode {derr:.3e}, state {serr}, "
+                           f"combines {f['combines']}")
+            if any("_all_gather(y, x.contiguous()" not in line
+                   for line in model_gathers):
+                bad.append(f"{arch} rank {r['rank']}: a parameter gathered "
+                           f"over 'model': {model_gathers}")
+    return bad
+
+
+def m1_depth(cfg) -> str:
+    if cfg.family == "whisper":
+        return f"{cfg.enc_layers} + {cfg.n_layers} layers"
+    return f"{cfg.n_layers} layers"
 
 
 def _run_all(cmds: dict, timeout: float) -> dict:

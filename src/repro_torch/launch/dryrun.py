@@ -12,8 +12,8 @@ of a full-size tensor is allocated), under the counting modes of
 fake local shards, placed by ``sharding/rules.py`` as the reference places
 them; the step is the port's own (``train/step.py``, ``serve/step.py`` with
 ``mesh=``): a rank computes on its batch shard, gathers each block's
-weights over the data axes when it runs and (dense and MoE) computes its
-share of the block over "model".
+weights over the data axes when it runs and computes its share of the
+block over "model" (every family is tensor-parallel).
 
 The record has the reference's keys, with these differences:
   * ``trace_s`` (the traced step's host seconds) in place of ``compile_s``;
@@ -42,7 +42,7 @@ The record has the reference's keys, with these differences:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k \\
       --mesh single [--device cpu]
   python -m repro_torch.launch.dryrun --all [--mesh both] \\
-      [--out-dir results/dryrun_torch]
+      [--archs rwkv6-1.6b,whisper-medium] [--out-dir results/dryrun_torch]
 
 ``--all`` runs one subprocess per cell, as the reference does: each cell
 gets a fresh process group, and a failed cell fails alone; one cell a
@@ -265,6 +265,9 @@ def main(argv=None):
     ap.add_argument("--profile", default="fsdp_tp", choices=["tp", "fsdp_tp"])
     ap.add_argument("--out-dir", default="results/dryrun_torch")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--archs", default=None,
+                    help="with --all: a comma-separated subset of the "
+                         "archs (default: every arch)")
     ap.add_argument("--resume", action="store_true",
                     help="skip cells whose JSON already exists")
     ap.add_argument("--device", default="cuda",
@@ -275,7 +278,11 @@ def main(argv=None):
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     if args.all:
-        cells = [(arch, shape, mk) for arch in configs.ARCHS
+        archs = args.archs.split(",") if args.archs else configs.ARCHS
+        unknown = sorted(set(archs) - set(configs.ARCHS))
+        if unknown:
+            ap.error(f"unknown archs {unknown}")
+        cells = [(arch, shape, mk) for arch in archs
                  for shape in S.SHAPES for mk in meshes
                  if not (args.resume and (
                      out_dir / f"{arch}__{shape}__{mk}.json").exists())]

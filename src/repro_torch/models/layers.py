@@ -26,10 +26,11 @@ Conventions:
     whose "model" axis has more than one rank (``act.tensor_parallel``),
     the matrices are the rank's slices as ``sharding.rules`` places them
     and the functions compute the rank's share (:func:`head_share`):
-    attention's query heads (column-parallel ``wq``, row-parallel ``wo``),
-    the MLP's d_ff columns, the vocab of the embedding, ``lm_head`` and
-    the loss; the partial sums are summed over "model" by ``act``'s f / g
-    pair. Without it they run the single-device code.
+    attention's query heads (column-parallel ``wq``, row-parallel ``wo``;
+    full, chunked, windowed and cached), the MLP's d_ff columns, the vocab
+    of the embedding, ``lm_head`` and the loss; the partial sums are
+    summed over "model" by ``act``'s f / g pair. Without it they run the
+    single-device code.
 """
 from __future__ import annotations
 
@@ -291,8 +292,7 @@ def _columns(x, w, b, width: int, a: int, z: int, tp: act.TP):
     y = _affine(x, w, b)
     if (a, z) == (tp.rank * c, (tp.rank + 1) * c):
         return y
-    full = act.gather_model(y).movedim(0, -2)
-    return full.reshape(*y.shape[:-1], tp.size * c)[..., a:z]
+    return act.gather_cat(y)[..., a:z]
 
 
 def qkv_project(p: Attention, x, cfg: ModelConfig, positions, rope=None,
@@ -433,7 +433,8 @@ def windowed_attention(p: Attention, x, cfg: ModelConfig, positions=None,
     previous chunk under the combined causal+window mask (chunk 0's zero
     "previous chunk" masked out). The (B·C, W, 2W) chunks go to
     :func:`attend` as one batch, so compute is O(S · 2W), not O(S²). For
-    S <= W it is :func:`causal_attention`.
+    S <= W it is :func:`causal_attention`. Tensor-parallel, the rank's
+    heads (:func:`attention_share`), as :func:`causal_attention`.
     """
     w = cfg.window
     b, s, _ = x.shape
@@ -441,7 +442,8 @@ def windowed_attention(p: Attention, x, cfg: ModelConfig, positions=None,
         return causal_attention(p, x, cfg, positions, rope)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q, k, v = qkv_project(p, x, cfg, positions, rope)
+    sh = attention_share(p, cfg)
+    q, k, v = qkv_project(p, x, cfg, positions, rope, sh)
     pad = (-s) % w
     nchunk = (s + pad) // w
 
@@ -461,13 +463,13 @@ def windowed_attention(p: Attention, x, cfg: ModelConfig, positions=None,
     mask = ((rel >= 0) & (rel < w)).expand(nchunk, w, 2 * w).clone()
     mask[0] &= kpos[None, :] >= 0                       # chunk 0 has no prev
     mask = mask[None, :, None].expand(b, nchunk, 1, w, 2 * w)
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    h, kv, hd = sh.cfg.n_heads, sh.cfg.n_kv, sh.cfg.hd
     out = attend(qc.reshape(b * nchunk, w, h, hd),
                  kk.reshape(b * nchunk, 2 * w, kv, hd),
                  vv.reshape(b * nchunk, 2 * w, kv, hd),
-                 mask.reshape(b * nchunk, 1, w, 2 * w), cfg)
+                 mask.reshape(b * nchunk, 1, w, 2 * w), sh.cfg)
     out = out.reshape(b, nchunk * w, h * hd)[:, :s]
-    return out @ p.wo.to(x.dtype)
+    return out_project(p, out, cfg, sh)
 
 
 def kv_quantize(x):
@@ -757,8 +759,7 @@ def whole_logits(logits, cfg: ModelConfig):
     tp = act.tensor_parallel()
     if tp is None or logits.shape[-1] == cfg.vocab:
         return logits
-    full = act.gather_model(logits).movedim(0, -2)
-    return full.reshape(*logits.shape[:-1], cfg.vocab)
+    return act.gather_cat(logits)
 
 
 def _nll_vocab_parallel(lf, labels, first: int):

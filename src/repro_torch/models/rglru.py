@@ -17,6 +17,14 @@ the conv taps, float32 in decode) are stored in float32, the projections
 in ``cfg.dtype``. Each group and each tail block runs under
 ``layers.remat`` (the reference's ``jax.checkpoint``). The family API
 follows :mod:`repro_torch.models.transformer`.
+
+The family is tensor-parallel (``tensor_parallel``): on a mesh whose
+"model" axis has more than one rank, each rank runs its W / model
+channels of every recurrent block (the conv, the gates' columns, the
+scan, ``w_out``'s rows; ``u`` gathered over "model" for the dense gate
+products), its heads of the local attention (K / V gathered: KV = 1), its
+d_ff columns and its vocab slice, and decodes with its channels of each
+state and its rows of each K/V ring.
 """
 from __future__ import annotations
 
@@ -73,12 +81,22 @@ def _causal_conv(p: Recurrent, x):
     return out + p.conv_b.to(x.dtype)
 
 
-def _lru_coeffs(p: Recurrent, u):
+def _split(p: Recurrent, cfg: ModelConfig) -> bool:
+    """Whether the block runs its rank's channels: tensor-parallel and
+    ``w_in``'s columns split over "model"."""
+    return act.tensor_parallel() is not None and p.w_in.shape[-1] < _w(cfg)
+
+
+def _lru_coeffs(p: Recurrent, u, split: bool = False):
     """u (..., W) conv output -> (a, b) recurrence coefficients
-    (float32)."""
+    (float32). ``split``: ``u`` is the rank's channels, every rank's
+    gathered over "model" for the gates (dense (W, W) products whose
+    columns are the rank's: ``act.gather_model``, each rank's gradient of
+    the whole a partial sum), ``b`` from the rank's own."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p.w_a + p.b_a)
-    i = torch.sigmoid(uf @ p.w_x + p.b_x)
+    whole = act.gather_cat(uf) if split else uf
+    r = torch.sigmoid(whole @ p.w_a + p.b_a)
+    i = torch.sigmoid(whole @ p.w_x + p.b_x)
     log_a = -_C * F.softplus(p.lru_lambda) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
@@ -98,29 +116,47 @@ def linear_scan(a, b):
     return b
 
 
+def _out(p: Recurrent, h, gate, split: bool):
+    """(h·gate) @ ``w_out``; ``split``: the rank's rows, summed over
+    "model"."""
+    y = (h.to(gate.dtype) * gate) @ p.w_out.to(gate.dtype)
+    return act.constrain(y) if split else y
+
+
 def rec_fwd(p: Recurrent, x, cfg: ModelConfig):
-    """Full-sequence recurrent block. x (B, S, D) -> (B, S, D)."""
+    """Full-sequence recurrent block. x (B, S, D) -> (B, S, D).
+    Tensor-parallel, the rank's W / model channels (``w_in`` / ``w_gate``
+    columns, the conv, the scan, ``w_out`` rows), ``x`` entering the
+    column-parallel products (``act.enter``)."""
+    split = _split(p, cfg)
+    if split:
+        x = act.enter(x)
     u = _causal_conv(p, x @ p.w_in.to(x.dtype))
-    h = linear_scan(*_lru_coeffs(p, u))
+    h = linear_scan(*_lru_coeffs(p, u, split))
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(x @ p.w_gate.to(x.dtype), approximate="tanh")
-    return (h.to(x.dtype) * gate) @ p.w_out.to(x.dtype)
+    return _out(p, h, gate, split)
 
 
 def rec_step(p: Recurrent, x, state: dict, cfg: ModelConfig):
     """Single-token step. x (B, 1, D); state {"h": (B, W) float32, "conv":
-    (B, cw-1, W)} -> (out (B, 1, D), the new state)."""
+    (B, cw-1, W)} -> (out (B, 1, D), the new state). Tensor-parallel, the
+    state is the rank's channels (``rules.cache_specs``), as
+    :func:`rec_fwd` computes them."""
+    split = _split(p, cfg)
+    if split and state["h"].shape[-1] != p.w_in.shape[-1]:
+        raise ValueError("an RG-LRU state not split over 'model' as its "
+                         "channels are")
     xi = x[:, 0] @ p.w_in.to(x.dtype)                     # (B, W)
     dt = torch.promote_types(state["conv"].dtype, xi.dtype)
     hist = torch.cat([state["conv"].to(dt), xi[:, None].to(dt)], dim=1)
     u = torch.einsum("bcw,cw->bw", hist.float(), p.conv_w.float()) \
         + p.conv_b
-    a, b = _lru_coeffs(p, u)
+    a, b = _lru_coeffs(p, u, split)
     h = a * state["h"] + b
     gate = F.gelu(x[:, 0] @ p.w_gate.to(x.dtype), approximate="tanh")
-    out = (h.to(x.dtype) * gate) @ p.w_out.to(x.dtype)
-    return out[:, None], {"h": h,
-                          "conv": hist[:, 1:].to(state["conv"].dtype)}
+    return _out(p, h, gate, split)[:, None], {
+        "h": h, "conv": hist[:, 1:].to(state["conv"].dtype)}
 
 
 # --------------------------------------------------------------- blocks ----
@@ -128,6 +164,7 @@ def rec_step(p: Recurrent, x, state: dict, cfg: ModelConfig):
 class Block(nn.Module):
     """``ln1`` → ``mix`` (:class:`Recurrent`, or local attention) →
     residual, ``ln2`` → ``mlp`` → residual."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device,
                  kind: str):
@@ -141,6 +178,7 @@ class Block(nn.Module):
 
 class Group(nn.Module):
     """Blocks ``rec1``, ``rec2`` and ``attn``."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -157,6 +195,7 @@ def n_groups(cfg: ModelConfig) -> tuple[int, int]:
 class Griffin(nn.Module):
     """``embed``, ``groups``, ``tail`` (absent when ``n_layers % 3`` is 0)
     and ``final_norm``."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -194,23 +233,30 @@ def _group_fwd(grp: Group, x, cfg: ModelConfig, rope):
     return x
 
 
+def _logits(model: Griffin, batch, cfg: ModelConfig):
+    x = L.embed(model.embed, batch["tokens"], cfg)
+    rope = T._rope(x, cfg)
+    for grp in model.groups:
+        x = L.remat(_group_fwd, grp, x, cfg, rope)
+    for blk in getattr(model, "tail", ()):
+        x = L.remat(_block_fwd, blk, x, cfg)
+    x = L.apply_norm(model.final_norm, x, cfg)
+    return L.unembed(model.embed, x, cfg)
+
+
 def forward(model: Griffin, batch, cfg: ModelConfig):
     """-> logits (B, S, V) float32 (non-layer parameters gathered on a
-    mesh, as ``transformer.forward``)."""
+    mesh, as ``transformer.forward``; with a "model" axis the rank's vocab
+    slice)."""
     with act.gathered(model, "embed", "final_norm"):
-        x = L.embed(model.embed, batch["tokens"], cfg)
-        rope = T._rope(x, cfg)
-        for grp in model.groups:
-            x = L.remat(_group_fwd, grp, x, cfg, rope)
-        for blk in getattr(model, "tail", ()):
-            x = L.remat(_block_fwd, blk, x, cfg)
-        x = L.apply_norm(model.final_norm, x, cfg)
-        return L.unembed(model.embed, x, cfg)
+        return _logits(model, batch, cfg)
 
 
 def loss_fn(model: Griffin, batch, cfg: ModelConfig):
-    logits = forward(model, batch, cfg)
-    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    with act.gathered(model, "embed", "final_norm"):
+        logits = _logits(model, batch, cfg)
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               vocab=cfg.vocab)
 
 
 # ------------------------------------------------------------- serving -----
@@ -258,11 +304,14 @@ def decode_step(model: Griffin, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence; states and K/V rings written in
     place. Returns (logits (B, V) float32, the cache with ``pos + 1``).
     On a mesh the non-layer parameters are gathered for the call and each
-    group's or tail block's inside its loop (``act.gathered``)."""
+    group's or tail block's inside its loop (``act.gathered``); with a
+    "model" axis the states are the rank's channels and the K/V rings its
+    block (``serve.step``: over the sequence, as KV = 1 cannot be split),
+    and the logits are gathered over the vocab."""
     with act.gathered(model, "embed", "final_norm"):
         x = L.embed(model.embed, tokens[:, None], cfg)
         pos = cache["pos"]
-        slots = L.decode_slots(x, cache["k"].shape[2], pos, cfg)
+        slots = L.decode_slots(x, L.cache_rows(cache["k"]), pos, cfg)
         for i, grp in enumerate(model.groups):
             with act.gathered(grp):
                 x = _group_step(grp, x, cache, i, pos, cfg, slots)
@@ -270,7 +319,7 @@ def decode_step(model: Griffin, cache: dict, tokens, cfg: ModelConfig):
             with act.gathered(blk):
                 x = _rec_block_step(blk, x, cache["tail"], i, cfg)
         x = L.apply_norm(model.final_norm, x, cfg)
-        logits = L.unembed(model.embed, x, cfg)[:, 0]
+        logits = L.whole_logits(L.unembed(model.embed, x, cfg)[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}
 
 

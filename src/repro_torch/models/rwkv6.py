@@ -20,10 +20,18 @@ mixing and decay vectors) are stored in float32, the projections in
 ``cfg.dtype``. Each layer runs under ``layers.remat`` (the reference's
 ``jax.checkpoint``). Parameters and the family API follow
 :mod:`repro_torch.models.transformer`.
+
+The family is tensor-parallel (``tensor_parallel``): on a mesh whose
+"model" axis has more than one rank, each rank runs its heads of the time
+mix (H / model of them where they divide "model"; else every head from
+the gathered projections, and its rows of ``wo``), its d_ff columns of
+the channel mix and its vocab slice, and decodes with its block of the
+state (:func:`tm_step`).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -88,28 +96,83 @@ def _ddlerp(p: TimeMix, x, xx):
     return [x + (xx - x) * mix[..., i, :].to(x.dtype) for i in range(_MIX)]
 
 
-def _tm_projections(p: TimeMix, x, xx, cfg: ModelConfig):
-    """Shared by the sequence and the step: r, k, v, w (..., H, hd)
-    float32 and the gate g in x's dtype."""
+class _Route(NamedTuple):
+    """How a time-mix block runs over "model": ``tp`` None on one device
+    (or where the rules left its projections whole); else ``own``: the
+    rank computes its own H / model heads (the heads divide "model"), or
+    every rank computes every head from the gathered projections."""
+    tp: Optional[act.TP]
+    own: bool
+
+
+def _route(p: TimeMix, cfg: ModelConfig) -> _Route:
+    tp = act.tensor_parallel()
+    if tp is None or p.wr.shape[-1] == cfg.d_model:
+        return _Route(None, False)
+    return _Route(tp, cfg.rwkv_heads % tp.size == 0)
+
+
+def _tm_projections(p: TimeMix, x, xx, cfg: ModelConfig, rt: _Route):
+    """Shared by the sequence and the step: r, k, v, w (..., h, hd)
+    float32, the gate g in x's dtype, and the bonus ``u`` (h, hd) and the
+    group norm's scale (h·hd) of those heads: every head on one device;
+    tensor-parallel the rank's heads (``rt.own``: the mixed inputs enter
+    the column-parallel ``wr`` / ``wk`` / ``wv`` / ``wg``, the decay's
+    low-rank product the rank's columns of ``decay_b``, and ``w0``, ``u``,
+    ``ln_scale`` and ``decay_b`` (replicated) are sliced after
+    ``act.enter``, so their gradients sum over "model"), or every head
+    (the rank's columns of r / k / v / g gathered with
+    ``act.gather_replicated``; the decay whole). The ddlerp is replicated
+    over "model": every rank computes it whole."""
     xr, xw, xk, xv, xg = _ddlerp(p, x, xx)
-    shape = (*x.shape[:-1], cfg.rwkv_heads, _HD)
-    r = (xr @ p.wr.to(x.dtype)).reshape(shape).float()
-    k = (xk @ p.wk.to(x.dtype)).reshape(shape).float()
-    v = (xv @ p.wv.to(x.dtype)).reshape(shape).float()
-    g = F.silu(xg @ p.wg.to(x.dtype))
-    dec = p.w0 + torch.tanh(xw.float() @ p.decay_a.float()) \
-        @ p.decay_b.float()
+    t = torch.tanh(xw.float() @ p.decay_a.float())
+    w0, decay_b, u, ln = p.w0, p.decay_b, p.u, p.ln_scale
+
+    def proj(xi, wt):
+        return xi @ wt.to(x.dtype)
+    if rt.tp is not None:
+        if rt.own:
+            c = p.wr.shape[-1]
+            w0, decay_b, u, ln = (act.own_block(act.enter(v), c)
+                                  for v in (w0, decay_b, u, ln))
+            t = act.enter(t)
+
+            def proj(xi, wt):
+                return act.enter(xi) @ wt.to(x.dtype)
+        else:
+            def proj(xi, wt):
+                return act.gather_cat(act.enter(xi) @ wt.to(x.dtype),
+                                      same=True)
+    shape = (*x.shape[:-1], -1, _HD)
+    r = proj(xr, p.wr).reshape(shape).float()
+    k = proj(xk, p.wk).reshape(shape).float()
+    v = proj(xv, p.wv).reshape(shape).float()
+    g = F.silu(proj(xg, p.wg))
+    dec = w0 + t @ decay_b.float()
     w = torch.exp(-torch.exp(dec)).reshape(shape)
-    return r, k, v, g, w
+    return r, k, v, g, w, u.reshape(-1, _HD), ln
 
 
-def _gn(p: TimeMix, o):
+def _gn(o, scale):
     """Per-head group norm on the wkv output (..., H, hd), population
-    variance."""
+    variance; ``scale`` (H·hd)."""
     mean = torch.mean(o, dim=-1, keepdim=True)
     var = torch.var(o, dim=-1, keepdim=True, correction=0)
     o = (o - mean) * torch.rsqrt(var + 1e-5)
-    return o.reshape(*o.shape[:-2], -1) * p.ln_scale
+    return o.reshape(*o.shape[:-2], -1) * scale
+
+
+def _tm_out(p: TimeMix, og, rt: _Route):
+    """(o·g) @ ``wo``; tensor-parallel the rank's rows, summed over
+    "model" (``act.constrain``). Where every rank ran every head, ``og``
+    is replicated: it enters (``act.enter``) before the rank takes its
+    rows, so that its gradient, and every gradient before it, is whole on
+    every rank."""
+    if rt.tp is None:
+        return og @ p.wo.to(og.dtype)
+    if not rt.own:
+        og = act.own_block(act.enter(og), p.wo.shape[0])
+    return act.constrain(og @ p.wo.to(og.dtype))
 
 
 def _wkv_sequential(r, k, v, w, u):
@@ -173,42 +236,82 @@ def tm_fwd(p: TimeMix, x, cfg: ModelConfig):
     """Full-sequence time mixing. x (B, S, D)."""
     s = x.shape[1]
     xx = F.pad(x, (0, 0, 1, 0))[:, :-1]                  # token shift
-    r, k, v, g, w = _tm_projections(p, x, xx, cfg)
-    u = p.u.reshape(cfg.rwkv_heads, _HD)
+    rt = _route(p, cfg)
+    r, k, v, g, w, u, ln = _tm_projections(p, x, xx, cfg, rt)
     if s > cfg.rwkv_chunk:
         o = _wkv_chunked(r, k, v, w, u, cfg.rwkv_chunk)
     else:
         o = _wkv_sequential(r, k, v, w, u)
-    o = _gn(p, o).to(x.dtype)
-    return (o * g) @ p.wo.to(x.dtype)
+    o = _gn(o, ln).to(x.dtype)
+    return _tm_out(p, o * g, rt)
+
+
+def _whole(t, width: int, dim: int = -1):
+    """A decode state's block -> the whole (gathered over "model", no
+    gradient) where it is narrower than ``width`` along ``dim``."""
+    return t if t.shape[dim] == width else act.gather_cat(t, dim)
+
+
+def _mine(t, like, dim: int = -1):
+    """``t`` (whole) cut to the rank's block where the state ``like`` is
+    one."""
+    n = like.shape[dim]
+    return t if t.shape[dim] == n else act.own_block(t, n, dim)
 
 
 def tm_step(p: TimeMix, x, state: dict, cfg: ModelConfig):
     """Single token. x (B, D); state {"S": (B,H,hd,hd) float32, "shift":
-    (B, D)} -> (out (B, D), the new state)."""
-    xx = state["shift"][:, None].to(x.dtype)
-    r, k, v, g, w = _tm_projections(p, x[:, None], xx, cfg)
+    (B, D)} -> (out (B, D), the new state). Tensor-parallel, the state is
+    the rank's block (``rules.cache_specs``): ``shift`` its channels
+    (gathered for the ddlerp, which reads all of them; the new one is the
+    rank's channels of ``x``), ``S`` its heads (the heads divide "model":
+    the rank's own), else its rows of the key dim (gathered: every rank
+    runs every head, and keeps its rows of the new state)."""
+    rt = _route(p, cfg)
+    xx = _whole(state["shift"], cfg.d_model)[:, None].to(x.dtype)
+    r, k, v, g, w, u, ln = _tm_projections(p, x[:, None], xx, cfg, rt)
     r, k, v, w = r[:, 0], k[:, 0], v[:, 0], w[:, 0]
-    u = p.u.reshape(cfg.rwkv_heads, _HD)
+    s0 = state["S"]
+    if rt.own and s0.shape[1] != r.shape[1]:
+        raise ValueError("an RWKV state not split over 'model' by head, "
+                         "as the heads are")
+    s_all = _whole(s0, _HD, -2)
     kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    out = torch.einsum("bhk,bhkv->bhv", r,
-                       state["S"] + u[None, :, :, None] * kv)
-    new_s = w[..., None] * state["S"] + kv
-    o = _gn(p, out[:, None]).to(x.dtype)
-    o = (o * g) @ p.wo.to(x.dtype)
-    return o[:, 0], {"S": new_s, "shift": x}
+    out = torch.einsum("bhk,bhkv->bhv", r, s_all + u[None, :, :, None] * kv)
+    new_s = w[..., None] * s_all + kv
+    o = _gn(out[:, None], ln).to(x.dtype)
+    o = _tm_out(p, o * g, rt)
+    return o[:, 0], {"S": _mine(new_s, s0, -2),
+                     "shift": _mine(x, state["shift"])}
 
 
 def cm_fwd(p: ChannelMix, x, xx, cfg: ModelConfig):
+    """Channel mixing. Tensor-parallel: ``relu²(enter(xk) @ wk) @ wv`` on
+    the rank's d_ff columns, summed over "model"; the receptance
+    ``sigmoid(enter(xr) @ wr)`` on the rank's columns, gathered with
+    ``act.gather_replicated`` (every rank multiplies the whole by the
+    summed value)."""
     xk = x + (xx - x) * p.mu_k.to(x.dtype)
     xr = x + (xx - x) * p.mu_r.to(x.dtype)
-    k = torch.square(F.relu(xk @ p.wk.to(x.dtype)))
-    return torch.sigmoid(xr @ p.wr.to(x.dtype)) * (k @ p.wv.to(x.dtype))
+    tp = act.tensor_parallel()
+    ff = tp is not None and p.wk.shape[-1] < cfg.d_ff
+    k = torch.square(F.relu((act.enter(xk) if ff else xk)
+                            @ p.wk.to(x.dtype)))
+    kv = k @ p.wv.to(x.dtype)
+    if ff:
+        kv = act.constrain(kv)
+    if tp is not None and p.wr.shape[-1] < cfg.d_model:
+        r = act.gather_cat(torch.sigmoid(act.enter(xr) @ p.wr.to(x.dtype)),
+                           same=True)
+    else:
+        r = torch.sigmoid(xr @ p.wr.to(x.dtype))
+    return r * kv
 
 
 class Block(nn.Module):
     """``ln1`` → time mixing ``tm`` → residual, ``ln2`` → channel mixing
     ``cm`` → residual."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -220,6 +323,7 @@ class Block(nn.Module):
 
 class RWKV(nn.Module):
     """``embed``, ``layers`` (``cfg.n_layers`` blocks) and ``final_norm``."""
+    tensor_parallel = True
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator, device):
         super().__init__()
@@ -245,20 +349,27 @@ def _layer_fwd(p: Block, x, cfg: ModelConfig):
     return x + cm_fwd(p.cm, h, hh, cfg)
 
 
+def _logits(model: RWKV, batch, cfg: ModelConfig):
+    x = L.embed(model.embed, batch["tokens"], cfg)
+    for blk in model.layers:
+        x = L.remat(_layer_fwd, blk, x, cfg)
+    x = L.apply_norm(model.final_norm, x, cfg)
+    return L.unembed(model.embed, x, cfg)
+
+
 def forward(model: RWKV, batch, cfg: ModelConfig):
     """-> logits (B, S, V) float32 (non-layer parameters gathered on a
-    mesh, as ``transformer.forward``)."""
+    mesh, as ``transformer.forward``; with a "model" axis the rank's vocab
+    slice)."""
     with act.gathered(model, "embed", "final_norm"):
-        x = L.embed(model.embed, batch["tokens"], cfg)
-        for blk in model.layers:
-            x = L.remat(_layer_fwd, blk, x, cfg)
-        x = L.apply_norm(model.final_norm, x, cfg)
-        return L.unembed(model.embed, x, cfg)
+        return _logits(model, batch, cfg)
 
 
 def loss_fn(model: RWKV, batch, cfg: ModelConfig):
-    logits = forward(model, batch, cfg)
-    return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+    with act.gathered(model, "embed", "final_norm"):
+        logits = _logits(model, batch, cfg)
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:],
+                               vocab=cfg.vocab)
 
 
 # ------------------------------------------------------------- serving -----
@@ -282,14 +393,16 @@ def decode_step(model: RWKV, cache: dict, tokens, cfg: ModelConfig):
     """One token for every sequence; the state is written in place.
     Returns (logits (B, V) float32, the cache with ``pos + 1``). On a
     mesh the non-layer parameters are gathered for the call and each
-    block's inside the loop (``act.gathered``)."""
+    block's inside the loop (``act.gathered``); with a "model" axis the
+    state is the rank's block (:func:`tm_step`) and the logits are
+    gathered over the vocab."""
     with act.gathered(model, "embed", "final_norm"):
         x = L.embed(model.embed, tokens[:, None], cfg)[:, 0]   # (B, D)
         for i, blk in enumerate(model.layers):
             with act.gathered(blk):
                 x = _decode_block(blk, x, cache, i, cfg)
         x = L.apply_norm(model.final_norm, x[:, None], cfg)
-        logits = L.unembed(model.embed, x, cfg)[:, 0]
+        logits = L.whole_logits(L.unembed(model.embed, x, cfg)[:, 0], cfg)
     return logits, {**cache, "pos": cache["pos"] + 1}
 
 
@@ -301,9 +414,10 @@ def _decode_block(blk: Block, x, cache: dict, i: int, cfg: ModelConfig):
                                 "shift": cache["tm_shift"][i]}, cfg)
     x = x + o
     h = L.apply_norm(blk.ln2, x[:, None], cfg)[:, 0]
+    cm_shift = cache["cm_shift"][i]
     o = cm_fwd(blk.cm, h[:, None],
-               cache["cm_shift"][i][:, None].to(x.dtype), cfg)[:, 0]
+               _whole(cm_shift, cfg.d_model)[:, None].to(x.dtype), cfg)[:, 0]
     cache["S"][i].copy_(st["S"])
     cache["tm_shift"][i].copy_(st["shift"])
-    cache["cm_shift"][i].copy_(h)
+    cm_shift.copy_(_mine(h, cm_shift))
     return x + o

@@ -12,23 +12,27 @@ trainer, a rank computes on its own batch shard with plain tensors and
 gathers the weights block by block over the data axes (``act.gathered``
 in each family's decode loop, ``act.gathering`` in ``forward``).
 
-The tensor-parallel families (dense, MoE) keep the "model" shards: a
-decode step reads and writes the rank's block of each cache leaf in
-place (no collective), split as ``cache_specs`` splits it: over the KV
-heads where they divide "model" (the rank attends with its heads), else
-over the sequence (the rank attends over its rows, the partials combined
-over "model"; the new token written by the rank that holds its
-position). The logits of both steps are gathered over the vocab for the
-last position alone. The other families gather each cache leaf's shards
-over the mesh axes other than the batch's first and hand back each leaf
-in its own placements, a view of the rank's block: no collective.
+Every family is tensor-parallel: it keeps the "model" shards, and a
+decode step reads and writes the rank's block of each cache leaf in place,
+split as ``cache_specs`` splits it (no leaf is gathered or re-split
+around the step). A KV cache is split
+over its KV heads where they divide "model" (the rank attends with its
+heads), else over the sequence (the rank attends over its rows, the
+partials combined over "model"; the new token written by the rank that
+holds its position: recurrentgemma's K/V ring, KV = 1, whose writes at
+``pos % window`` pass from the last rank's rows to rank 0's when the ring
+wraps). Recurrent state is split by head (rwkv6's matrix state, or its
+key dim where the heads do not divide "model") or by channel (the RG-LRU
+and conv states, rwkv6's token shifts), and the families read each block
+as it lies (``rwkv6.tm_step``). The logits of both steps are gathered
+over the vocab for the last position alone.
 """
 from __future__ import annotations
 
 import contextlib
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models import get_family, layers as L
 from repro_torch.models.base import ModelConfig
@@ -54,11 +58,11 @@ def _tree(fn, tree):
 
 
 def _kv_split(cache: dict):
-    """How a tensor-parallel family's cache is split over "model": its
-    ``k`` leaf's placement there (``"heads"``: dim 3, ``"seq"``: dim 2,
-    None: replicated). A split over the head dim (4) has no attention
-    route and raises."""
-    k = cache["k"]
+    """How a family's KV cache is split over "model": its ``k`` leaf's
+    placement there (``"heads"``: dim 3, ``"seq"``: dim 2, None:
+    replicated, or no KV cache: rwkv6's state is all its decode reads). A
+    split over the head dim (4) has no attention route and raises."""
+    k = cache.get("k")
     if not isinstance(k, DTensor) or "model" not in \
             k.device_mesh.mesh_dim_names:
         return None
@@ -69,29 +73,6 @@ def _kv_split(cache: dict):
         raise ValueError(f"a KV cache split over dim {pl.dim} by 'model': "
                          "only its KV heads (3) or its sequence (2) can be")
     return "seq" if pl.dim == 2 else "heads"
-
-
-def _batch_only(x):
-    """A cache leaf's rank block over the batch dim (1) alone: its shards
-    over every other dim gathered (a plain tensor)."""
-    if not isinstance(x, DTensor):
-        return x
-    keep = [p if isinstance(p, Shard) and p.dim == 1 else Replicate()
-            for p in x.placements]
-    return x.redistribute(x.device_mesh, keep).to_local()
-
-
-def _replace(new, old):
-    """``new`` (a rank's batch-only block) back in ``old``'s placements:
-    the rank's chunk of every dim it had gathered, as a view."""
-    if not isinstance(old, DTensor):
-        return new
-    mesh, coord = old.device_mesh, old.device_mesh.get_coordinate()
-    for i, p in enumerate(old.placements):
-        if isinstance(p, Shard) and p.dim != 1:
-            new = new.chunk(mesh.size(i), dim=p.dim)[coord[i]]
-    return DTensor.from_local(new, mesh, old.placements, run_check=False,
-                              shape=old.shape, stride=old.stride())
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None):
@@ -121,11 +102,15 @@ def make_prefill_step(cfg: ModelConfig, mesh=None):
         if cfg.family == "whisper":
             enc_out = fam.encode(params, batch["frames"], cfg)
             b, dev = enc_out.shape[0], enc_out.device
-            cache = fam.init_cache(cfg, b, 8, enc_len=enc_out.shape[1],
-                                   device=dev)
+            # a "model" axis: the rank's KV heads of both caches, as
+            # ``prefill_cross`` writes the cross-attention's
+            m = _model_ranks(mesh)
+            cache = fam.init_cache(cfg.replace(n_kv=cfg.n_kv // m), b, 8,
+                                   enc_len=enc_out.shape[1], device=dev)
             cache = fam.prefill_cross(params, enc_out, cache, cfg)
             bos = torch.zeros((b,), dtype=torch.long, device=dev)
-            return fam.decode_step(params, cache, bos, cfg)[0]
+            with act.kv_split("heads" if m > 1 else None):
+                return fam.decode_step(params, cache, bos, cfg)[0]
         return _last(params, batch)
 
     return prefill
@@ -140,24 +125,28 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     def decode(params, cache, tokens):
         if mesh is None:
             return fam.decode_step(params, cache, tokens, cfg)
-        if act.is_tensor_parallel(params):
-            local, split = _tree(_local, cache), _kv_split(cache)
-        else:
-            local, split = _tree(_batch_only, cache), None
-        with _on_mesh(mesh), act.kv_split(split):
-            logits, new = fam.decode_step(params, local, _local(tokens), cfg)
-        return logits, _merge(new, cache, act.is_tensor_parallel(params))
+        with _on_mesh(mesh), act.kv_split(_kv_split(cache)):
+            logits, new = fam.decode_step(params, _tree(_local, cache),
+                                          _local(tokens), cfg)
+        return logits, _merge(new, cache)
 
     return decode
 
 
-def _merge(new, old, whole_block: bool):
-    """The step's cache leaves back in ``old``'s placements: a rank's
-    block as it is (``whole_block``), or a batch-only block re-split."""
+def _model_ranks(mesh) -> int:
+    """The size of the mesh's "model" axis (1 without one)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index("model"))
+
+
+def _merge(new, old):
+    """The step's cache leaves (each the rank's block, written in place)
+    back in ``old``'s placements."""
     if isinstance(new, dict):
-        return {k: _merge(v, old[k], whole_block) for k, v in new.items()}
-    if whole_block and isinstance(old, DTensor):
-        return DTensor.from_local(new, old.device_mesh, old.placements,
-                                  run_check=False, shape=old.shape,
-                                  stride=old.stride())
-    return _replace(new, old)
+        return {k: _merge(v, old[k]) for k, v in new.items()}
+    if not isinstance(old, DTensor):
+        return new
+    return DTensor.from_local(new, old.device_mesh, old.placements,
+                              run_check=False, shape=old.shape,
+                              stride=old.stride())

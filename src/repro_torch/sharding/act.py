@@ -19,12 +19,14 @@ gradient into the parameter's placements: a reduce-scatter over the data
 axes, nothing over "model". Inside ``layers.remat`` the backward's
 recompute gathers again, as ZeRO-3 does.
 
-Over "model" (size > 1) the tensor-parallel families (the dense and MoE
-transformers: their model and block modules set ``tensor_parallel =
-True``, which :func:`is_tensor_parallel` reads) keep each rank's slice and
-compute with it, and :func:`tensor_parallel` tells the layers so. The
-layout changes at four points, the Megatron pair and the reference's two
-constraints as they now are:
+Over "model" (size > 1) every family keeps each rank's slice and
+computes with it (the model and block modules set ``tensor_parallel =
+True``, which :func:`is_tensor_parallel` reads), and
+:func:`tensor_parallel` tells the layers so: attention's heads, the MLP's
+d_ff, the MoE experts and the vocab (dense, MoE, recurrentgemma's local
+attention, whisper), rwkv6's heads and channel-mix columns, the RG-LRU's
+channels. The layout changes at these points, the Megatron pair, two
+gathers and the reference's expert constraint:
 
   * :func:`enter` (Megatron's f): a replicated activation enters a
     column-parallel product: identity forward, sum over "model" backward;
@@ -32,8 +34,15 @@ constraints as they now are:
     join the reference's layout: sum over "model" forward, identity
     backward;
   * :func:`gather_model`: the rank's columns of a projected activation
-    gathered over "model" (attention where the heads or K/V heads do not
-    divide "model"); reduce-scatter backward;
+    gathered over "model", where each rank then computes a different part
+    from the whole (attention's heads where the heads or K/V heads do not
+    divide "model", the RG-LRU's gates from every channel of ``u``):
+    reduce-scatter backward;
+  * :func:`gather_replicated`: the same gather where every rank then
+    computes the same thing from the whole (rwkv6's channel-mix
+    receptance, its projections where its heads do not divide "model"):
+    the rank's slice of the gradient backward, no collective (Megatron's
+    ``gather_from_tensor_model_parallel_region``);
   * :func:`constrain_expert`: the rank's experts' tile of a replicated
     dispatch buffer, built locally (no collective), as the reference's
     (B over data, E over model) layout lets every rank build it.
@@ -41,8 +50,7 @@ constraints as they now are:
 The collectives run on the mesh's "model" group through
 ``torch.distributed`` (functional all-reduces and reduce-scatters, the
 in-place all-gather), so ``utils.comms.CollectiveCounter`` sees them.
-The other families (rwkv6, recurrentgemma, whisper) gather their blocks
-whole, over "model" too.
+No parameter split over "model" is gathered over "model".
 
 The launchers enable the gather with ``with activation_sharding(mesh,
 ("pod", "data")): ...`` around a step. Without it, on plain parameters or
@@ -270,20 +278,23 @@ class _Constrain(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """(...) -> (size, ...): every rank's tensor, stacked in rank order."""
+    """(...) -> (size, ...): every rank's tensor, stacked in rank order;
+    the gradient reduce-scattered back (``same``: its rank's slice)."""
     @staticmethod
-    def forward(ctx, x, group, size):
-        ctx.group = group
+    def forward(ctx, x, group, size, rank, same):
+        ctx.group, ctx.rank, ctx.same = group, rank, same
         # the in-place c10d op: gloo's functional all-gather of CUDA
         # tensors crashes (torch 2.11), its in-place one runs
         return _gather0(x, group, size).view((size,) + tuple(x.shape))
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.same:
+            return g[ctx.rank], None, None, None, None
         g = g.contiguous()
         out = _wait(_reduce_scatter(g.reshape((-1,) + tuple(g.shape[2:])),
                                     "sum", 0, ctx.group))
-        return out.reshape(g.shape[1:]), None, None
+        return out.reshape(g.shape[1:]), None, None, None, None
 
 
 def enter(x: torch.Tensor) -> torch.Tensor:
@@ -305,9 +316,45 @@ def constrain(x: torch.Tensor) -> torch.Tensor:
 
 def gather_model(x: torch.Tensor) -> torch.Tensor:
     """Every "model" rank's ``x`` (of one shape), stacked on a new leading
-    dim in rank order; the gradient reduce-scattered back."""
+    dim in rank order; the gradient reduce-scattered back. Right where
+    each rank goes on to compute a different part from the gathered
+    tensor (its own heads, its own columns of a weight), so that the
+    rank's gradient of it is a partial sum: attention's q / K / V / head
+    outputs where the heads do not divide "model", the RG-LRU's ``u``
+    entering the rank's columns of ``w_a`` / ``w_x``."""
     tp = _TP.get()
-    return _Gather.apply(x, tp.group, tp.size)
+    return _Gather.apply(x, tp.group, tp.size, tp.rank, False)
+
+
+def gather_replicated(x: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_model`'s forward, with the rank's slice of the
+    gradient backward and no collective. Right where every rank goes on to
+    compute the same thing from the gathered tensor, so that its gradient
+    is already whole and the same on every rank: rwkv6's channel-mix
+    receptance (multiplied by the summed value), its r / k / v / g where
+    its heads do not divide "model" (every rank then runs every head).
+    :func:`gather_model` there would sum ``size`` equal gradients."""
+    tp = _TP.get()
+    return _Gather.apply(x, tp.group, tp.size, tp.rank, True)
+
+
+def gather_cat(x: torch.Tensor, dim: int = -1, same: bool = False
+               ) -> torch.Tensor:
+    """Every "model" rank's ``x`` concatenated along ``dim`` in rank order
+    (the rank's columns of an activation, its block of a cache leaf ->
+    the whole): :func:`gather_replicated` with ``same``, else
+    :func:`gather_model`."""
+    full = (gather_replicated if same else gather_model)(x)
+    dim = dim % x.dim()
+    return full.movedim(0, dim).reshape(*x.shape[:dim], -1,
+                                        *x.shape[dim + 1:])
+
+
+def own_block(x: torch.Tensor, n: int, dim: int = -1) -> torch.Tensor:
+    """The rank's ``n`` entries of ``x`` along ``dim`` (a replicated
+    tensor's block, as ``rules`` splits it over "model"): a view, no
+    collective."""
+    return x.narrow(dim, _TP.get().rank * n, n)
 
 
 def reduce_model(x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -362,5 +409,4 @@ def constrain_expert(x: torch.Tensor, n: int, axis: int = 1
     entries at the rank's place, as ``rules`` splits the experts over
     "model". Built locally: no collective. Call it only where the experts
     are split over "model" (:func:`tensor_parallel` set)."""
-    tp = _TP.get()
-    return x.narrow(axis, tp.rank * n, n)
+    return own_block(x, n, axis)

@@ -14,10 +14,9 @@ On a mesh (``mesh=``; the parameters and AdamW state are DTensors placed
 by ``sharding.rules``, ``launch/train.build_trainer``) every rank runs the
 same step on its own shard of each microbatch (``rules.batch_specs``), its
 blocks gathering their weights one at a time over the data axes
-(``sharding.act``). The dense and MoE families keep the "model" shards
-and compute the rank's heads, d_ff columns, experts and vocab slice
-(tensor and expert parallelism; the other families gather their blocks
-over "model" too). The gradients reach ``.grad`` in the parameters'
+(``sharding.act``). Every family keeps the "model" shards and computes
+the rank's heads, channels, d_ff columns, experts and vocab slice
+(tensor and expert parallelism). The gradients reach ``.grad`` in the parameters'
 placements, averaged over the data ranks (a "model"-sharded parameter's
 gradient is its shard's, a replicated one's the same on every "model"
 rank), and the loss, the same on every "model" rank, is averaged over the
