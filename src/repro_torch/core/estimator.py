@@ -16,7 +16,10 @@ draws take an explicit ``torch.Generator``; the PRP round keys of a batch
 replay the reference's key tree. Nothing here needs gradients.
 :func:`estimate_batch_pooled` is the pooled ("sync") stopping mode of a
 sharded index (``distributed.estimate_sharded``), and :func:`_ingest_core`
-the update body that ``distributed.update_sharded`` shares.
+the update body that ``distributed.update_sharded`` shares. While a
+``torch.profiler`` runs, each estimate is an ``estimator.estimate_batch``
+span, its LUT build a ``pq.build_query_lut`` span inside it, and the
+prober's phases spans inside those (``core/prober.py``).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.cache import epochs as cache_epochs
 from repro_torch.core import lsh, pq as pqmod, prober, updates
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
+from repro_torch.utils.spans import span
 
 
 class ProberState(NamedTuple):
@@ -107,9 +111,10 @@ def estimate_batch(state: ProberState, qs: torch.Tensor, taus: torch.Tensor,
                    generator: torch.Generator | None = None) -> torch.Tensor:
     """Estimate Q cardinalities |{p : ||p - q|| <= tau}|: ``qs`` (Q, d),
     ``taus`` (Q,) → (Q,) float32."""
-    rks = _round_keys(state, qs.shape[0], rks, generator)
-    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
-                                 **_pq_args(state, qs, cfg))
+    with span("estimator.estimate_batch"):
+        rks = _round_keys(state, qs.shape[0], rks, generator)
+        return prober.estimate_batch(state.index, state.x, qs, taus, cfg,
+                                     rks, **_pq_args(state, qs, cfg))
 
 
 def _pq_args(state: ProberState, qs: torch.Tensor,
@@ -120,8 +125,9 @@ def _pq_args(state: ProberState, qs: torch.Tensor,
     pq = state.pq
     if not cfg.use_pq or pq is None:
         return {}
-    lut = pqmod.build_query_lut(pq, qs.to(state.x.device, torch.float32),
-                                cfg)
+    with span("pq.build_query_lut"):
+        lut = pqmod.build_query_lut(
+            pq, qs.to(state.x.device, torch.float32), cfg)
     return {"pq_codes": pq.codes, "pq_luts": lut, "pq_resid": pq.resid,
             "pq_packed": pq.packed}
 
@@ -138,9 +144,10 @@ def estimate_batch_pooled(state: ProberState, qs: torch.Tensor,
     own shard and its own round keys ``rks`` (Q, L, 6). Returns the global
     (Q,) estimates, the same on every rank; ``with_stats`` adds the pooled
     ``probed_k`` (Q, L) and ``nvisited`` (Q,)."""
-    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
-                                 with_stats=with_stats, group=group,
-                                 **_pq_args(state, qs, cfg))
+    with span("estimator.estimate_batch"):
+        return prober.estimate_batch(state.index, state.x, qs, taus, cfg,
+                                     rks, with_stats=with_stats, group=group,
+                                     **_pq_args(state, qs, cfg))
 
 
 def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
@@ -150,20 +157,23 @@ def estimate_batch_stats(state: ProberState, qs: torch.Tensor,
     """:func:`estimate_batch` plus probe provenance: ``(ests (Q,), probed_k
     (Q, L), nvisited (Q,))``; the estimates equal :func:`estimate_batch`'s
     for the same round keys."""
-    rks = _round_keys(state, qs.shape[0], rks, generator)
-    return prober.estimate_batch(state.index, state.x, qs, taus, cfg, rks,
-                                 with_stats=True, **_pq_args(state, qs, cfg))
+    with span("estimator.estimate_batch"):
+        rks = _round_keys(state, qs.shape[0], rks, generator)
+        return prober.estimate_batch(state.index, state.x, qs, taus, cfg,
+                                     rks, with_stats=True,
+                                     **_pq_args(state, qs, cfg))
 
 
 def estimate(state: ProberState, q: torch.Tensor, tau, cfg: ProberConfig,
              rks: torch.Tensor | None = None,
              generator: torch.Generator | None = None) -> torch.Tensor:
     """One query ``q`` (d,) and radius ``tau``; ``rks`` is (L, 6)."""
-    if rks is None:
-        rks = _round_keys(state, 1, None, generator)[0]
-    q = q.to(state.x.device)
-    return prober.estimate(state.index, state.x, q, tau, cfg, rks,
-                           **_pq_args(state, q[None], cfg))
+    with span("estimator.estimate_batch"):
+        if rks is None:
+            rks = _round_keys(state, 1, None, generator)[0]
+        q = q.to(state.x.device)
+        return prober.estimate(state.index, state.x, q, tau, cfg, rks,
+                               **_pq_args(state, q[None], cfg))
 
 
 def _grow(state: ProberState, new_capacity: int) -> ProberState:

@@ -41,6 +41,15 @@ Pooled ("sync") stopping for a sharded index (``core/distributed.py``):
 with a ``torch.distributed`` process group, one ``all_reduce`` at setup
 and one per slab step pool the lanes' Chernoff statistics over the ranks'
 shards, so every rank stops on the global selectivity, in lockstep.
+
+Tracing: while a ``torch.profiler`` runs, each phase is a span
+(:func:`repro_torch.utils.spans.span`): ``prober.query_lanes``,
+``prober.table_setup`` (holding ``prober.ring_cumsums`` and
+``prober.central_count``), ``prober.slab_loop`` (holding a
+``prober.slab_block`` span a block, each holding a ``prober.slab_step``
+span a step) and ``prober.tally``. :data:`TALLY` counts the slab's
+candidates by route and its lane-steps, only while a profiler runs
+(:func:`read_tally`).
 """
 from __future__ import annotations
 
@@ -52,8 +61,60 @@ import torch.distributed as dist
 from repro_torch.core import collectives, lsh, pq as pqmod, sampling
 from repro_torch.core.config import ProberConfig
 from repro_torch.kernels import ops
+from repro_torch.utils.spans import span, enabled as _tracing
 # the PRP of Alg. 2 lives beside the slab kernel's plain version
 from repro_torch.kernels.ref import prp_eval as _prp_eval  # noqa: F401
+
+
+# what the slab steps of the calls made under a profiler did, summed on the
+# device: candidates the kernel qualified exactly and by ADC for lanes still
+# active; candidates of lanes already done earlier in their block, which the
+# merge discards; those discarded lane-steps; and the kept lane-steps. None
+# until a profiled call, then an int64 tensor on that call's device.
+# _TALLIED counts the calls summed in it
+TALLY_FIELDS = ("exact", "adc", "discarded", "discarded_lane_steps",
+                "kept_lane_steps")
+TALLY: torch.Tensor | None = None
+_TALLIED = 0
+
+
+def reset_tally() -> None:
+    global TALLY, _TALLIED
+    TALLY, _TALLIED = None, 0
+
+
+def read_tally() -> dict[str, int]:
+    """:data:`TALLY` as ints by :data:`TALLY_FIELDS`, and under ``calls``
+    the number of calls it sums (a copy to the host: the caller waits for
+    the device)."""
+    vals = [0] * len(TALLY_FIELDS) if TALLY is None else TALLY.tolist()
+    return {**dict(zip(TALLY_FIELDS, vals)), "calls": _TALLIED}
+
+
+def _tally(kept: list, qual: ops.Qual, n_rings: int) -> None:
+    """Add the slab steps of one call to :data:`TALLY`: ``kept`` holds each
+    step's ``(w_add, k, done)``, the candidates it drew per lane, the lanes'
+    rings and whether they were done before the step. A lane qualifies
+    exactly without codes or in ring ``min(k, K) <= exact_rings``. 10-14
+    launches a call on the card, no sync."""
+    global TALLY, _TALLIED
+    _TALLIED += 1
+    if not kept:
+        return
+    w_add, k, done = (torch.cat(t) for t in zip(*kept))
+    if TALLY is None:
+        TALLY = torch.zeros(len(TALLY_FIELDS), dtype=torch.int64,
+                            device=w_add.device)
+    elif TALLY.device != w_add.device:
+        TALLY = TALLY.to(w_add.device)
+    discarded = done.long()
+    if qual.codes is None:
+        route = discarded * 2
+    else:
+        adc = (k.clamp_max(n_rings) > qual.exact_rings).long()
+        route = torch.where(done, 2, adc)
+    TALLY.scatter_add_(0, route, w_add.long())
+    TALLY.scatter_add_(0, 4 - discarded, torch.ones_like(discarded))
 
 
 class TableView(NamedTuple):
@@ -134,31 +195,35 @@ def _table_setup(view: TableView, ham: torch.Tensor, qcodes: torch.Tensor,
     each rank samples only its own candidates. ``totals_f`` stays local
     too: each rank's ring estimate |N_k,s|·p̂_s is unbiased under its own
     uniform sampling, and their sum is the global ring count."""
-    n_rings = view.bucket_codes.shape[-1]
-    cums = ring_cumsums(view, ham, n_rings)
-    est0, visited0 = _count_central(view, tid, qcodes, qual, central_exact,
-                                    cfg)
-    totals = cums[:, 1:, -1]
-    totals_f = totals.float()
-    caps = totals.clamp_max(cfg.ring_budget)
-    nbits = torch.where(caps <= 1, 0, _bit_length((caps - 1).clamp_min(1)))
-    prings = torch.ones_like(nbits) << nbits
-    w_caps = torch.minimum(torch.ceil(cfg.s_max * totals_f), caps.float())
-    totals_sched, visit_budget = totals_f, cfg.max_visit
-    if group is not None:
-        # float32 sums of counts: exact below 2^24
-        pooled = torch.cat([est0[:, None], visited0[:, None].float(),
-                            totals_f, w_caps], 1)
-        collectives.all_reduce(pooled, group=group)
-        est0, visited0 = pooled[:, 0], pooled[:, 1].int()
-        totals_sched = pooled[:, 2:2 + n_rings]
-        w_caps = pooled[:, 2 + n_rings:]
-        visit_budget = cfg.max_visit * dist.get_world_size(group)
-    first_targets = torch.ceil(cfg.s1 * totals_sched).clamp_min(1.0)
-    ctx = LaneCtx(cums=cums, rks=rks, prings=prings, caps=caps, nbits=nbits,
-                  totals_f=totals_f, w_caps=w_caps,
-                  first_targets=first_targets, visit_budget=visit_budget)
-    return ctx, est0, visited0
+    with span("prober.table_setup"):
+        n_rings = view.bucket_codes.shape[-1]
+        with span("prober.ring_cumsums"):
+            cums = ring_cumsums(view, ham, n_rings)
+        with span("prober.central_count"):
+            est0, visited0 = _count_central(view, tid, qcodes, qual,
+                                            central_exact, cfg)
+        totals = cums[:, 1:, -1]
+        totals_f = totals.float()
+        caps = totals.clamp_max(cfg.ring_budget)
+        nbits = torch.where(caps <= 1, 0, _bit_length((caps - 1).clamp_min(1)))
+        prings = torch.ones_like(nbits) << nbits
+        w_caps = torch.minimum(torch.ceil(cfg.s_max * totals_f), caps.float())
+        totals_sched, visit_budget = totals_f, cfg.max_visit
+        if group is not None:
+            # float32 sums of counts: exact below 2^24
+            pooled = torch.cat([est0[:, None], visited0[:, None].float(),
+                                totals_f, w_caps], 1)
+            collectives.all_reduce(pooled, group=group)
+            est0, visited0 = pooled[:, 0], pooled[:, 1].int()
+            totals_sched = pooled[:, 2:2 + n_rings]
+            w_caps = pooled[:, 2 + n_rings:]
+            visit_budget = cfg.max_visit * dist.get_world_size(group)
+        first_targets = torch.ceil(cfg.s1 * totals_sched).clamp_min(1.0)
+        ctx = LaneCtx(cums=cums, rks=rks, prings=prings, caps=caps,
+                      nbits=nbits, totals_f=totals_f, w_caps=w_caps,
+                      first_targets=first_targets,
+                      visit_budget=visit_budget)
+        return ctx, est0, visited0
 
 
 def _init_state(ctx: LaneCtx, est0, visited0, n_rings: int) -> dict:
@@ -179,7 +244,8 @@ def _row(t: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
 
 def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
                tid: torch.Tensor, view: TableView, qual: ops.Qual,
-               cfg: ProberConfig, group=None) -> dict:
+               cfg: ProberConfig, group=None, kept: list | None = None
+               ) -> dict:
     """One progressive-sampling slab (Alg. 2 body) for the active lanes.
 
     ``s`` and ``small`` hold the active lanes' rows of the loop state and
@@ -191,6 +257,9 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
     (A, 5) stack ``[w, w', exhausted, 1, ring_est]`` pools the lanes'
     Chernoff statistics, exhaustion votes and ring estimates; every
     stopping quantity below reads the pooled values.
+
+    ``kept`` (a list, while a profiler runs) gets the step's ``(w_add, k,
+    done)``, tensors the step has anyway, for :func:`_tally`.
     """
     chunk = cfg.chunk
     n_rings = view.bucket_codes.shape[-1]
@@ -198,6 +267,8 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
     wq_add, w_add = ops.slab_qualify(
         k, ci, lanes, tid, small.rks, small.prings, small.caps, small.nbits,
         ctx.cums, view.bucket_starts, view.order, qual, chunk)
+    if kept is not None:
+        kept.append((w_add, k, s["done"]))
     # lanes that finished earlier in the block (k = K+1) still run the step
     # and are discarded by the caller; clamp their ring to a valid row, as
     # the reference's clamped gathers do
@@ -245,10 +316,12 @@ def _slab_step(s: dict, ctx: LaneCtx, small: LaneCtx, lanes: torch.Tensor,
 
 def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                lane_t: torch.Tensor, qual: ops.Qual,
-               cfg: ProberConfig, group=None) -> dict:
+               cfg: ProberConfig, group=None,
+               kept: list | None = None) -> dict:
     """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
     steps over the active lanes, one host sync per block, then compaction.
-    Updates ``state`` in place and returns it.
+    Updates ``state`` in place and returns it; ``kept`` collects the steps'
+    tally tensors (:func:`_slab_step`).
 
     Pooled stopping (``group``) keeps this schedule: ``done`` derives only
     from pooled values (the setup's and each step's ``all_reduce``, whose
@@ -256,23 +329,27 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
     active lanes, runs the same number of steps and passes collectives of
     the same shape, in lockstep."""
     block = max(cfg.lane_block, 1)
-    active = torch.nonzero(~state["done"]).squeeze(1)
-    while active.numel():
-        s = {kk: v[active] for kk, v in state.items()}
-        small = ctx._replace(cums=None, rks=ctx.rks[active],
-                             prings=ctx.prings[active], caps=ctx.caps[active],
-                             nbits=ctx.nbits[active],
-                             totals_f=ctx.totals_f[active],
-                             w_caps=ctx.w_caps[active],
-                             first_targets=ctx.first_targets[active])
-        tid = lane_t[active]
-        for _ in range(block):
-            new = _slab_step(s, ctx, small, active, tid, view, qual, cfg,
-                             group)
-            s = {kk: torch.where(s["done"], s[kk], new[kk]) for kk in s}
-        for kk, v in s.items():
-            state[kk][active] = v
+    with span("prober.slab_loop"):
         active = torch.nonzero(~state["done"]).squeeze(1)
+        while active.numel():
+            with span("prober.slab_block"):
+                s = {kk: v[active] for kk, v in state.items()}
+                small = ctx._replace(
+                    cums=None, rks=ctx.rks[active],
+                    prings=ctx.prings[active], caps=ctx.caps[active],
+                    nbits=ctx.nbits[active], totals_f=ctx.totals_f[active],
+                    w_caps=ctx.w_caps[active],
+                    first_targets=ctx.first_targets[active])
+                tid = lane_t[active]
+                for _ in range(block):
+                    with span("prober.slab_step"):
+                        new = _slab_step(s, ctx, small, active, tid, view,
+                                         qual, cfg, group, kept)
+                        s = {kk: torch.where(s["done"], s[kk], new[kk])
+                             for kk in s}
+                for kk, v in s.items():
+                    state[kk][active] = v
+                active = torch.nonzero(~state["done"]).squeeze(1)
     return state
 
 
@@ -329,8 +406,9 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     qs = qs.to(dev, torch.float32).contiguous()
     taus = taus.to(dev, torch.float32)
     view = table_views(index)
-    qcodes, ham = lsh.query_lanes(index.params, qs, view.bucket_codes,
-                                  view.n_buckets)      # (Q, L, K), (Q, L, B)
+    with span("prober.query_lanes"):
+        qcodes, ham = lsh.query_lanes(index.params, qs, view.bucket_codes,
+                                      view.n_buckets)  # (Q, L, K), (Q, L, B)
     lane = torch.arange(nq * nl, device=dev)
     lane_q, lane_t = lane // nl, lane % nl
     qual = _make_qual(x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts,
@@ -340,7 +418,11 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
         lane_t, qual, qual.codes is None or cfg.pq_exact_central, cfg, group)
     del ham
     state = _init_state(ctx, est0, visited0, n_rings)
-    state = _run_lanes(state, ctx, view, lane_t, qual, cfg, group)
+    kept = [] if _tracing() else None
+    state = _run_lanes(state, ctx, view, lane_t, qual, cfg, group, kept)
+    if kept is not None:
+        with span("prober.tally"):
+            _tally(kept, qual, n_rings)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests

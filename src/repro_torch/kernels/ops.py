@@ -19,6 +19,7 @@ pointers, so no dispatch mode sees them: the dry runs read their work here.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -738,7 +739,7 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
         w = tuple(map(max, w, slab_qualify_work(
             na, d, 0, 0, na * chunk, na,
             qual.codes.shape[1] + 4 * (qual.resid is not None),
-            qual.luts[0].numel() * qual.luts.element_size(),
+            math.prod(qual.luts.shape[1:]) * qual.luts.element_size(),
             qual.luts.shape[1])))
     _work("slab_qualify", *w)
     opt = [t for t in qual[3:8] if t is not None]

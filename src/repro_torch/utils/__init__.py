@@ -1,1 +1,1 @@
-"""Cost models of the port."""
+"""Cost models of the port, and its profiler spans (:mod:`.spans`)."""
