@@ -38,12 +38,20 @@ Phases, in order; each raises on failure:
    two replaced (``lsh_hash``, ``hamming_to_buckets``, ``l2dist_rows``,
    ``adc_rows[_q8]``) may launch. Then ``query_lanes`` again at 2^21, and
    on an index of 2^21 bucket rows that are all live; each time also with
-   other counts of worker blocks, which must give the same results.
+   other counts of worker blocks, which must give the same results. A
+   third ``estimate_batch_stats`` of the 64 queries (launch counts
+   restored after it) holds its slab loop (``slab_loop``, one launch)
+   bit-equal to the host loop of ``slab_qualify`` steps on a copy of the
+   loop's input state, and its results equal to the first call's.
 5. The fused slab kernel ``slab_qualify`` against its plain version on the
    grown state (128 lanes x 128 slots, B = 2^21): sample counts and sums
    equal, and equal to the slab path's composition before the fusion (the
    torch candidate walk and the ``l2dist_rows`` kernel); CUDA-event and
-   profiler times, and the launches of one slab step either way. Then
+   profiler times, and the launches of one slab step either way. Then the
+   slab loop on the grown state's lanes from their start (128 lanes x
+   128, chunk 128): bit-equal to the host loop, its CUDA-event and
+   profiler times beside the host loop's and the byte bound of the
+   candidates its per-lane counts show it qualified. Then
    ``central_qualify`` (Alg. 3's central count, one launch) against its
    plain version and the composition it replaced (ring 0's cumsum row,
    ``gather_ring_from_cum``, ``l2dist_rows``) at 128 lanes x 2048.
@@ -60,15 +68,19 @@ Phases, in order; each raises on failure:
    (bit-identical), an in-capacity and a growth ``update`` (Alg. 8) with
    an estimate after each; the serving config (``serve_cfg``: every
    qualification through the uint8 LUT), then ``serve_cfg`` with float
-   LUTs (the config where the uint8 datapath is absent); and the
-   full-ADC-scan baseline, held against its plain version.
+   LUTs (the config where the uint8 datapath is absent), each config's
+   slab loop held bit-equal to the host loop in one more estimate; and
+   the full-ADC-scan baseline, held against its plain version.
 9. The four ADC kernels against their plain versions at the PQ path's
    shapes (and the packed 4-bit layout), with CUDA-event times of the
    kernel, the plain version and ``embedding_bag`` beside the bound (and,
    for ``adc_batch[_q8]``, beside the shared-memory word ceiling); then
    ``slab_qualify`` against its plain version on the PQ states: mixed
    routing and banded weights at 2^21, ``serve_cfg``'s uint8 slab (64 x
-   512) with byte and packed codes; ``central_qualify`` on the PQ states
+   512) with byte and packed codes; the slab loop on the same PQ states
+   and on ``serve_cfg`` with float LUTs (chunk 512: a cluster of 4 blocks
+   a lane), bit-equal to the host loop and timed as in 5;
+   ``central_qualify`` on the PQ states
    (``prober_cfg``'s exact central, a banded ADC central, ``serve_cfg``'s
    uint8 and float LUTs) against the composition it replaced.
 10. ``torch.profiler`` over one PQ ``estimate_batch`` of each config.
@@ -184,7 +196,7 @@ L1. ``repro_torch.launch.serve.main`` with ``--arch qwen2-7b --scale full
     each request's exact ranking through ``l2dist``. Launch counts zeroed
     before and read after; fatal: an operator served and one refused,
     every finished request 1-4 tokens, ``query_lanes``, ``central_qualify``
-    and ``slab_qualify`` launched, the replaced kernels not. Then the
+    and ``slab_loop`` launched, the replaced kernels not. Then the
     planner's kernels at the CLI's shapes (its ProberConfig, one query an
     estimate), launch counts restored after: the planner's index rebuilt
     from the seed, each request's ``l2dist`` (1M x 128 x 1) against
@@ -345,8 +357,9 @@ R1. The dry runs, each in a process of its own (a fake process group,
     (16, 16)) at full size on fake ``cuda`` tensors, the three at once,
     then ``launch.dryrun_ce`` at 4,096,000 points a rank (rank 0's shard
     built and estimated on the card), its warm-up estimate holding every
-    ``query_lanes``, ``slab_qualify`` and ``central_qualify`` call against
-    the plain version on the same inputs, at the CE's shapes (K = 12 over
+    ``query_lanes`` and ``central_qualify`` call against the plain version
+    and the slab loop against the host loop on the same inputs, at the
+    CE's shapes (K = 12 over
     the 4,096,000-row shard, chunk 512, budget 8192). Fatal: a process
     failed, a record is missing or has a zero roofline term; the CE's
     estimates not finite, no slab step, a path kernel not launched, a
@@ -367,6 +380,7 @@ package beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -429,6 +443,9 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
             "adc_batch_q8": "src/repro/kernels/adc.py:200",
             "slab_qualify": "src/repro/kernels/l2dist.py:41, "
                             "src/repro/kernels/adc.py:67",
+            "slab_loop": "src/repro/core/prober.py:390 (the slab "
+                         "while_loop), src/repro/kernels/l2dist.py:41, "
+                         "src/repro/kernels/adc.py:67",
             "central_qualify": "src/repro/kernels/adc.py:153, "
                                "src/repro/kernels/adc.py:67, "
                                "src/repro/kernels/l2dist.py:41",
@@ -436,9 +453,11 @@ REPLACES = {"lsh_hash": "src/repro/kernels/lsh_hash.py:46",
                             "a jax.lax.fori_loop; no pallas_call)",
             "neighbor_dists": "src/repro/core/neighbors.py:26 "
                               "(_pairwise_hamming, jnp; no pallas_call)"}
-# the kernels every estimator path launches, and the ones they replaced
-# there (still built and held against their plain versions)
-PATH_KERNELS = ("query_lanes", "slab_qualify", "central_qualify")
+# the kernels every estimator path launches under local stopping (the slab
+# loop in one launch; pooled stopping steps it with slab_qualify), and the
+# ones they replaced there (still built and held against their plain
+# versions)
+PATH_KERNELS = ("query_lanes", "slab_loop", "central_qualify")
 EXACT_KERNELS = PATH_KERNELS + ("l2dist",)
 # R1: the dry-run cells (arch, shape, mesh) and the CE's points a rank; X1:
 # the examples; each phase's processes' time limit, seconds
@@ -456,6 +475,7 @@ SOURCES = {"lsh_hash": "lsh_hash.cu", "hamming_to_buckets": "hamming.cu",
            "l2dist_rows": "l2dist.cu", "adc_rows": "adc.cu",
            "adc_batch": "adc.cu", "adc_rows_q8": "adc.cu",
            "adc_batch_q8": "adc.cu", "slab_qualify": "slab.cu",
+           "slab_loop": "slab.cu",
            "central_qualify": "slab.cu", "cache_insert": "cache.cu",
            "neighbor_dists": "neighbors.cu"}
 
@@ -866,6 +886,68 @@ def hold_slab(torch, tag, slab, qual, chunk, got):
     return plain, ok, exact, ties
 
 
+def hold_slab_loop(torch, tag, pre, got, ctx, view, lane_t, qual, cfg):
+    """The slab loop's final state ``got`` (``prober._loop_lanes`` from
+    the state ``pre``) against the host loop of ``slab_qualify`` steps on
+    a copy of ``pre``: every field bit-equal (the kernel's stopping rule
+    is the host loop's, rounded alike). Returns the lanes held."""
+    from repro_torch.core import prober
+    want = prober._run_lanes({k: v.clone() for k, v in pre.items()}, ctx,
+                             view, lane_t, qual, cfg)
+    for k, v in got.items():
+        a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in (v, want[k]))
+        if not torch.equal(a, b):
+            raise AssertionError(f"slab_loop[{tag}]: {k} differs from the "
+                                 f"host loop in {int((a != b).sum())} lanes")
+    return got["k"].numel()
+
+
+@contextlib.contextmanager
+def holding_loop(torch, tag, when=lambda: True):
+    """Inside, every ``prober._loop_lanes`` call for which ``when()`` holds
+    is held against the host loop on a copy of its input state
+    (:func:`hold_slab_loop`). Yields a list holding the count of calls
+    held."""
+    from repro_torch.core import prober
+    loop_lanes = prober._loop_lanes
+    held = [0]
+
+    def run(state, ctx, view, lane, lane_t, qual, cfg):
+        pre = {k: v.clone() for k, v in state.items()} if when() else None
+        counts = loop_lanes(state, ctx, view, lane, lane_t, qual, cfg)
+        if pre is not None:
+            hold_slab_loop(torch, tag, pre, state, ctx, view, lane_t, qual,
+                           cfg)
+            held[0] += 1
+        return counts
+
+    prober._loop_lanes = run
+    try:
+        yield held
+    finally:
+        prober._loop_lanes = loop_lanes
+
+
+def held_estimate(torch, tag, fn, want):
+    """One more estimate ``fn()`` with its slab loop held against the host
+    loop (:func:`holding_loop`), launch counts restored after it; its
+    results must equal ``want``, the same call's earlier results."""
+    from repro_torch.kernels import ops
+    saved = dict(ops.LAUNCHES)
+    with holding_loop(torch, tag) as held:
+        got = fn()
+    ops.LAUNCHES.update(saved)
+    if held[0] != 1:
+        raise AssertionError(f"slab_loop[{tag}]: {held[0]} loops held, "
+                             "want 1")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: the held estimate differs from the "
+                             "earlier call")
+    log(f"slab_loop[{tag}]: the estimate's loop bit-equal to the host loop "
+        "in every state field; results equal to the earlier call's")
+
+
 def hold_central(torch, tag, args, got):
     """``got`` = ``ops.central_qualify(*args)`` against its plain version
     on the same inputs: seen and total equal; on the exact route the sums
@@ -960,6 +1042,8 @@ def phase_main_path(torch, corpus, cfg, seed):
                                        for a, b in zip(first, out)):
             raise AssertionError("estimate_batch_stats is not deterministic")
         first = out
+    held_estimate(torch, "main path @ N", lambda: E.estimate_batch_stats(
+        state, qs, taus, cfg, rks=rks), first)
     est, probed_k, nvis = first
     truth = truth_line(torch, "@ N", E.true_cardinality(state.x, qs, taus,
                                                           n_valid=N))
@@ -1221,6 +1305,85 @@ def phase_slab(torch, tag, state, qs, taus, cfg, seed, step=False,
                 "kernels")
         log(f"  per slab, whole step before the fusion (derived): "
             f"{step_now[0] - now[0] + before[0]} launch calls")
+    return res
+
+
+def fresh_ms(torch, make, fn, iters: int) -> float:
+    """Mean CUDA-event time of ``fn(make())`` over ``iters`` calls, each
+    on a fresh input made outside the timed span, warmed up."""
+    fn(make())
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        a = make()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(a)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def phase_slab_loop(torch, tag, state, qs, taus, cfg, seed,
+                    requal=None) -> dict:
+    """The slab loop (``prober._loop_lanes``: one ``slab_loop`` launch) on
+    the queries' lanes of ``state`` from their start, held bit-equal to
+    the host loop of ``slab_qualify`` steps on a copy of its input state
+    (:func:`hold_slab_loop`); CUDA-event times of both, each on a fresh
+    copy, and the profiler's device time of the kernel, beside the bound
+    of the candidates its per-lane counts show it qualified. ``requal``
+    may replace the qualification inputs. Returns the kernel's result
+    entry."""
+    from repro_torch.core import estimator as E, prober
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=qs.device).manual_seed(seed + 12)
+    rks = E.draw_round_keys(g, qs.shape[0], cfg.n_tables, qs.device)
+    b = prober.setup_lanes(state.index, state.x, qs, taus, cfg, rks,
+                           **E._pq_args(state, qs, cfg))
+    qual = b.qual if requal is None else requal(b.qual)
+
+    def fresh():
+        return {k: v.clone() for k, v in b.state.items()}
+
+    def loop(st):
+        return prober._loop_lanes(st, b.ctx, b.view, b.lane, b.lane_t, qual,
+                                  cfg)
+
+    def host(st):
+        return prober._run_lanes(st, b.ctx, b.view, b.lane_t, qual, cfg)
+
+    got = fresh()
+    counts = loop(got)
+    nql = hold_slab_loop(torch, f"{tag}, main-path shapes", b.state, got,
+                         b.ctx, b.view, b.lane_t, qual, cfg)
+    ms = fresh_ms(torch, fresh, loop, iters=5)
+    plain_ms = fresh_ms(torch, fresh, host, iters=2)
+    dev_us = kernel_device_us(torch, lambda: loop(fresh()),
+                              "slab_qualify_kernel", iters=5)
+    exact_n, adc_n, steps = counts.long().sum(0).tolist()
+    codes = qual.codes is not None
+    lut_b = qual.luts[0].numel() * qual.luts.element_size() if codes else 0
+    cb = qual.codes.shape[1] + 4 * (qual.resid is not None) if codes else 0
+    m = qual.luts.shape[1] if codes else 0
+    # each candidate the lanes qualified read once, each lane's query row
+    # or LUT and state once: the loop stages them across its steps
+    nbytes, flops = ops.slab_qualify_work(
+        nql, qual.x.shape[1], exact_n, int((counts[:, 0] > 0).sum()),
+        adc_n, int((counts[:, 1] > 0).sum()), cb, lut_b, m)
+    res = dict(max_abs_err=0.0,       # bit-equal to the host loop, held
+               ms=ms, plain_ms=plain_ms, bound=bound_ms(nbytes, flops),
+               library_ms=None)
+    log(f"slab_loop[{tag}, {nql} lanes x chunk {cfg.chunk}, B = "
+        f"{b.ctx.cums.shape[-1]}]: bit-equal to the host loop in every "
+        f"state field; {steps} lane-steps (longest lane "
+        f"{int(counts[:, 2].max())}), {exact_n} candidates qualified "
+        f"exactly, {adc_n} by ADC")
+    log(f"  loop {ms:.4f} ms a call (CUDA events), kernel {dev_us:.2f} us "
+        f"on the device (profiler); host loop {plain_ms:.4f} ms; bound "
+        f"{res['bound'][0] * 1e3:.3f} us ({res['bound'][1]}, {nbytes} "
+        "bytes)")
     return res
 
 
@@ -1550,6 +1713,8 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
             raise AssertionError("PQ estimate_batch_stats is not "
                                  "deterministic")
         first = out
+    held_estimate(torch, "pq prober_cfg @ N", lambda: E.estimate_batch_stats(
+        state, qs, taus, cfg, rks=rks), first)
     summarize(torch, "pq estimate @ N (prober_cfg)", first[0], truth)
     log(f"  probed_k mean {float(first[1].float().mean()):.3f}, nvisited "
         f"mean {float(first[2].float().mean()):.1f}")
@@ -1585,6 +1750,8 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
             sstate, qs, taus, scfg, rks=srks))
         log(f"pq estimate_batch_stats (serve_cfg, {rnd} call, Q={NQ}): "
             f"{t_est * 1e3:.3f} ms")
+    held_estimate(torch, "pq serve_cfg @ N", lambda: E.estimate_batch_stats(
+        sstate, qs, taus, scfg, rks=srks), out)
     summarize(torch, "pq estimate @ N (serve_cfg)", out[0], truth)
     log(f"  probed_k mean {float(out[1].float().mean()):.3f}, nvisited "
         f"mean {float(out[2].float().mean()):.1f}")
@@ -1596,6 +1763,9 @@ def phase_pq_main_path(torch, corpus, qs, taus, seed):
         sstate, qs, taus, fcfg, rks=srks))
     log(f"pq estimate_batch_stats (serve_cfg, float LUTs, Q={NQ}): "
         f"{t_est * 1e3:.3f} ms")
+    held_estimate(torch, "pq serve_cfg float LUTs @ N",
+                  lambda: E.estimate_batch_stats(sstate, qs, taus, fcfg,
+                                                 rks=srks), out)
     summarize(torch, "pq estimate @ N (serve_cfg, float LUTs)", out[0],
               truth)
     read_launches("serve_cfg, float LUTs", PATH_KERNELS)
@@ -5216,11 +5386,12 @@ def _tail(text: str, n: int = 30) -> str:
 
 def ce_held(argv) -> int:
     """R1's CE: ``launch.dryrun_ce.main(argv)`` with every
-    ``query_lanes``, ``slab_qualify`` and ``central_qualify`` call of its
-    first ``estimate_sharded`` (the warm-up, before the timed and the
-    counted runs) held against its plain version on the same inputs, at
-    the CE's own shapes (``hold_*``). Fatal: a difference, or a kernel the
-    warm-up never called. Run as ``python -c "import chip_smoke ..."``."""
+    ``query_lanes`` and ``central_qualify`` call of its first
+    ``estimate_sharded`` (the warm-up, before the timed and the counted
+    runs) held against its plain version, and its slab loop against the
+    host loop, on the same inputs, at the CE's own shapes (``hold_*``).
+    Fatal: a difference, or a kernel the warm-up never called. Run as
+    ``python -c "import chip_smoke ..."``."""
     import torch
     from repro_torch.core import distributed as D
     from repro_torch.kernels import ops
@@ -5234,10 +5405,6 @@ def ce_held(argv) -> int:
         if name == "query_lanes":
             pcodes, near = hold_query_lanes(torch, "CE", a, got)
             t, e = int(near.sum()), float((got[0] - pcodes).abs().max())
-        elif name == "slab_qualify":
-            plain, _, _, tl = hold_slab(torch, "CE", a[:11], a[11], a[12],
-                                        got)
-            t, e = int(tl.sum()), float((got[0] - plain[0]).abs().max())
         else:
             plain, tl = hold_central(torch, "CE", a, got)
             t, e = int(tl.sum()), float((got[0] - plain[0]).abs().max())
@@ -5253,7 +5420,7 @@ def ce_held(argv) -> int:
             return got
         return run
 
-    for name in PATH_KERNELS:
+    for name in ("query_lanes", "central_qualify"):
         setattr(ops, name, wrap(name, getattr(ops, name)))
     estimate = D.estimate_sharded
 
@@ -5262,13 +5429,17 @@ def ce_held(argv) -> int:
         return estimate(*a, **kw)
 
     D.estimate_sharded = counted
-    dryrun_ce.main(argv)
-    log("R1 CE held against the plain versions in its warm-up estimate: "
+    with holding_loop(torch, "CE", lambda: calls[0] == 1) as loops:
+        dryrun_ce.main(argv)
+    held["slab_loop"] = loops[0]
+    log("R1 CE held in its warm-up estimate: "
         + ", ".join(f"{k} {held[k]} calls (max |diff| {err[k]}, {ties[k]} "
                     + ("hash values within MARGIN of an integer"
                        if k == "query_lanes" else "d^2 within MARGIN tau^2 "
-                       "of tau^2") + ")" for k in PATH_KERNELS)
-        + f"; MARGIN = {MARGIN}")
+                       "of tau^2") + ")" for k in ("query_lanes",
+                                                   "central_qualify"))
+        + f" against the plain versions; slab_loop {held['slab_loop']} "
+        f"calls bit-equal to the host loop; MARGIN = {MARGIN}")
     if min(held.values()) == 0:
         raise AssertionError(f"R1 CE: a kernel was never held: {held}")
     return 0
@@ -5337,7 +5508,7 @@ def phase_dryrun(examples: bool = True):
         f"{r['t_collective_s']:.6g} s ({r['dominant']}), cost "
         f"{json.dumps(ce['cost_raw'])}, launches {ce['launches']}, "
         f"collectives {json.dumps(ce['collectives'])}; {smi_line()}")
-    if not ce["estimates_finite"] or ce["slab_steps"] < 1:
+    if not ce["estimates_finite"] or max(ce["slab_steps"].values()) < 1:
         raise AssertionError(f"R1 CE: estimates finite "
                              f"{ce['estimates_finite']}, slab steps "
                              f"{ce['slab_steps']}")
@@ -5433,6 +5604,9 @@ def main(argv=None) -> int:
     res["slab_qualify"] = phase_slab(torch, "exact", state, qs, taus, cfg,
                                      args.seed, step=True)
     torch.cuda.empty_cache()
+    res["slab_loop"] = phase_slab_loop(torch, "exact", state, qs, taus, cfg,
+                                       args.seed)
+    torch.cuda.empty_cache()
     res["central_qualify"] = phase_central(torch, "exact", state, qs, taus,
                                            cfg)
     torch.cuda.empty_cache()
@@ -5475,6 +5649,17 @@ def main(argv=None) -> int:
             ("serve_cfg uint8", sstate, scfg, None),
             ("serve_cfg uint8, packed codes", sstate, scfg, packed)):
         phase_slab(torch, tag, st, qs, taus, c, args.seed, requal=requal)
+        torch.cuda.empty_cache()
+    for tag, st, c, requal in (
+            ("prober_cfg PQ, mixed routing", pstate, pcfg, None),
+            ("prober_cfg PQ, banded", pstate, pcfg.replace(pq_banded=True),
+             None),
+            ("serve_cfg uint8", sstate, scfg, None),
+            ("serve_cfg float LUTs", sstate,
+             scfg.replace(pq_int8_lut=False), None),
+            ("serve_cfg uint8, packed codes", sstate, scfg, packed)):
+        phase_slab_loop(torch, tag, st, qs, taus, c, args.seed,
+                        requal=requal)
         torch.cuda.empty_cache()
     for tag, st, c, exact in (
             ("prober_cfg PQ", pstate, pcfg, None),

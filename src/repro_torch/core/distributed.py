@@ -189,18 +189,21 @@ def shard_round_keys(seed: int, nq: int, nl: int, device, group=None,
 def estimate_sharded(state: E.ProberState, qs: torch.Tensor,
                      taus: torch.Tensor, cfg: ProberConfig,
                      rks: torch.Tensor, group=None,
-                     mode: str = "local") -> torch.Tensor:
+                     mode: str = "local",
+                     steps: list | None = None) -> torch.Tensor:
     """Batched estimation over the sharded index: ``qs`` (Q, d) and
     ``taus`` (Q,) the same on every rank, ``rks`` (Q, L, 6) this rank's
     round keys. ``local``: this rank's ``estimate_batch`` and one
     ``all_reduce(SUM)``; ``sync``: pooled stopping. Both return the global
-    (Q,) estimates, the same on every rank."""
+    (Q,) estimates, the same on every rank. ``steps`` gets this rank's
+    slab steps (``prober.estimate_batch``'s)."""
     if mode not in ("local", "sync"):
         raise ValueError(f"mode must be 'local' or 'sync', got {mode!r}")
     group = _group(group)
     if mode == "sync":
-        return E.estimate_batch_pooled(state, qs, taus, cfg, rks, group)
-    est = E.estimate_batch(state, qs, taus, cfg, rks=rks)
+        return E.estimate_batch_pooled(state, qs, taus, cfg, rks, group,
+                                       steps=steps)
+    est = E.estimate_batch(state, qs, taus, cfg, rks=rks, steps=steps)
     collectives.all_reduce(est, group=group)
     return est
 

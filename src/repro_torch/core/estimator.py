@@ -108,13 +108,16 @@ def _round_keys(state: ProberState, nq: int, rks, generator):
 
 def estimate_batch(state: ProberState, qs: torch.Tensor, taus: torch.Tensor,
                    cfg: ProberConfig, rks: torch.Tensor | None = None,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None,
+                   steps: list | None = None) -> torch.Tensor:
     """Estimate Q cardinalities |{p : ||p - q|| <= tau}|: ``qs`` (Q, d),
-    ``taus`` (Q,) → (Q,) float32."""
+    ``taus`` (Q,) → (Q,) float32. ``steps`` is
+    :func:`prober.estimate_batch`'s."""
     with span("estimator.estimate_batch"):
         rks = _round_keys(state, qs.shape[0], rks, generator)
         return prober.estimate_batch(state.index, state.x, qs, taus, cfg,
-                                     rks, **_pq_args(state, qs, cfg))
+                                     rks, steps=steps,
+                                     **_pq_args(state, qs, cfg))
 
 
 def _pq_args(state: ProberState, qs: torch.Tensor,
@@ -135,7 +138,8 @@ def _pq_args(state: ProberState, qs: torch.Tensor,
 def estimate_batch_pooled(state: ProberState, qs: torch.Tensor,
                           taus: torch.Tensor, cfg: ProberConfig,
                           rks: torch.Tensor, group,
-                          with_stats: bool = False):
+                          with_stats: bool = False,
+                          steps: list | None = None):
     """The distributed "sync" stopping mode: :func:`estimate_batch` on this
     rank's shard with the Chernoff statistics of every slab step pooled
     over the process ``group`` (one ``all_reduce`` a step, see
@@ -143,11 +147,12 @@ def estimate_batch_pooled(state: ProberState, qs: torch.Tensor,
     selectivity. Every rank of ``group`` must make the same call, with its
     own shard and its own round keys ``rks`` (Q, L, 6). Returns the global
     (Q,) estimates, the same on every rank; ``with_stats`` adds the pooled
-    ``probed_k`` (Q, L) and ``nvisited`` (Q,)."""
+    ``probed_k`` (Q, L) and ``nvisited`` (Q,). ``steps`` is
+    :func:`prober.estimate_batch`'s."""
     with span("estimator.estimate_batch"):
         return prober.estimate_batch(state.index, state.x, qs, taus, cfg,
                                      rks, with_stats=with_stats, group=group,
-                                     **_pq_args(state, qs, cfg))
+                                     steps=steps, **_pq_args(state, qs, cfg))
 
 
 def estimate_batch_stats(state: ProberState, qs: torch.Tensor,

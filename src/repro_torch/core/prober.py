@@ -9,20 +9,26 @@ layout; progressive sampling walks a keyed PRP over each ring's power-of-two
 domain one ``chunk``-sized slab at a time, checking the Chernoff bounds of
 §4.5 at the doubling points ``s_{i+1} = 2 s_i``.
 
-Schedule: a host loop runs ``max(cfg.lane_block, 1)`` slab steps on the
-active lanes, syncs once on ``done``, and compacts the still-active lanes
-with an index select. Finished lanes keep their state (the reference's
-``where(done, old, new)``), so per-lane results do not depend on
-``lane_block`` — the reference is bit-identical across its schedules too.
+Schedule: on the card under local stopping (no process group), one
+``ops.slab_loop`` launch runs every lane's slab steps and stopping rule
+until it is done, with no host sync (the kernel's rule is
+:func:`_slab_step`'s, bit for bit). Elsewhere (CPU tensors, or pooled
+stopping, which needs a collective a step) a host loop runs
+``max(cfg.lane_block, 1)`` slab steps on the active lanes, syncs once on
+``done``, and compacts the still-active lanes with an index select.
+Finished lanes keep their state (the reference's ``where(done, old,
+new)``), so per-lane results do not depend on ``lane_block`` or on the
+loop that ran them — the reference is bit-identical across its schedules
+too.
 
 The PRP round keys are inputs: ``rks`` (Q, L, 6), int64 holding uint32
 values, one row per lane (the reference draws them with
 ``jax.random.bits`` under its key tree; the parity tests pass those in).
 
-Each slab step's candidate half — PRP draws, the search of the ring's
-size cumsum, the CSR lookups and the qualification — is one call of
-``ops.slab_qualify`` (one fused kernel on the card), which returns each
-lane's weight sum and sample count; the stopping rule stays here.
+On the host loop each slab step's candidate half — PRP draws, the search
+of the ring's size cumsum, the CSR lookups and the qualification — is one
+call of ``ops.slab_qualify`` (one fused kernel on the card), which returns
+each lane's weight sum and sample count; the stopping rule stays here.
 
 PQ qualification ("Dynamic Prober-PQ", Alg. 4/5): with PQ codes and the
 batch's LUT stack, candidates qualify on their ADC distance (float, banded
@@ -45,8 +51,8 @@ shards, so every rank stops on the global selectivity, in lockstep.
 Tracing: while a ``torch.profiler`` runs, each phase is a span
 (:func:`repro_torch.utils.spans.span`): ``prober.query_lanes``,
 ``prober.table_setup`` (holding ``prober.ring_cumsums`` and
-``prober.central_count``), ``prober.slab_loop`` (holding a
-``prober.slab_block`` span a block, each holding a ``prober.slab_step``
+``prober.central_count``), ``prober.slab_loop`` (on the host loop holding
+a ``prober.slab_block`` span a block, each holding a ``prober.slab_step``
 span a step) and ``prober.tally``. :data:`TALLY` counts the slab's
 candidates by route and its lane-steps, only while a profiler runs
 (:func:`read_tally`).
@@ -91,30 +97,48 @@ def read_tally() -> dict[str, int]:
     return {**dict(zip(TALLY_FIELDS, vals)), "calls": _TALLIED}
 
 
+def _tally_on(device) -> torch.Tensor:
+    global TALLY
+    if TALLY is None:
+        TALLY = torch.zeros(len(TALLY_FIELDS), dtype=torch.int64,
+                            device=device)
+    elif TALLY.device != device:
+        TALLY = TALLY.to(device)
+    return TALLY
+
+
 def _tally(kept: list, qual: ops.Qual, n_rings: int) -> None:
     """Add the slab steps of one call to :data:`TALLY`: ``kept`` holds each
     step's ``(w_add, k, done)``, the candidates it drew per lane, the lanes'
     rings and whether they were done before the step. A lane qualifies
     exactly without codes or in ring ``min(k, K) <= exact_rings``. 10-14
     launches a call on the card, no sync."""
-    global TALLY, _TALLIED
+    global _TALLIED
     _TALLIED += 1
     if not kept:
         return
     w_add, k, done = (torch.cat(t) for t in zip(*kept))
-    if TALLY is None:
-        TALLY = torch.zeros(len(TALLY_FIELDS), dtype=torch.int64,
-                            device=w_add.device)
-    elif TALLY.device != w_add.device:
-        TALLY = TALLY.to(w_add.device)
+    tally = _tally_on(w_add.device)
     discarded = done.long()
     if qual.codes is None:
         route = discarded * 2
     else:
         adc = (k.clamp_max(n_rings) > qual.exact_rings).long()
         route = torch.where(done, 2, adc)
-    TALLY.scatter_add_(0, route, w_add.long())
-    TALLY.scatter_add_(0, 4 - discarded, torch.ones_like(discarded))
+    tally.scatter_add_(0, route, w_add.long())
+    tally.scatter_add_(0, 4 - discarded, torch.ones_like(discarded))
+
+
+def _tally_loop(counts: torch.Tensor) -> None:
+    """Add the slab loop's per-lane ``counts`` of one call to
+    :data:`TALLY`: a lane stops at the step that makes it done, so no
+    candidate or lane-step is discarded. 3 launches, no sync."""
+    global _TALLIED
+    _TALLIED += 1
+    tally = _tally_on(counts.device)
+    sums = counts.sum(0, dtype=torch.int64)
+    tally[:2] += sums[:2]
+    tally[4:] += sums[2:]
 
 
 class TableView(NamedTuple):
@@ -318,8 +342,9 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
                lane_t: torch.Tensor, qual: ops.Qual,
                cfg: ProberConfig, group=None,
                kept: list | None = None) -> dict:
-    """Drive every lane to ``done``: blocks of ``max(lane_block, 1)`` slab
-    steps over the active lanes, one host sync per block, then compaction.
+    """The host loop: drive every lane to ``done`` in blocks of
+    ``max(lane_block, 1)`` slab steps over the active lanes, one host sync
+    per block, then compaction.
     Updates ``state`` in place and returns it; ``kept`` collects the steps'
     tally tensors (:func:`_slab_step`).
 
@@ -353,6 +378,28 @@ def _run_lanes(state: dict, ctx: LaneCtx, view: TableView,
     return state
 
 
+def _device_loop(device: torch.device, group) -> bool:
+    """Whether one ``ops.slab_loop`` launch runs the slab loop: on the
+    card, under local stopping (pooled stopping needs a collective a
+    step)."""
+    return group is None and device.type == "cuda"
+
+
+def _loop_lanes(state: dict, ctx: LaneCtx, view: TableView,
+                lane: torch.Tensor, lane_t: torch.Tensor, qual: ops.Qual,
+                cfg: ProberConfig) -> torch.Tensor:
+    """Drive every lane to ``done`` on the card in one ``ops.slab_loop``
+    launch: :func:`_run_lanes` without a group, its steps and stopping rule
+    in the kernel. Updates ``state`` in place; returns the per-lane counts
+    (QL, 3): candidates qualified exactly, by ADC, and slab steps."""
+    with span("prober.slab_loop"):
+        return ops.slab_loop(
+            state, lane, lane_t, ctx.rks, ctx.prings, ctx.caps, ctx.nbits,
+            ctx.totals_f, ctx.w_caps, ctx.first_targets, ctx.cums,
+            view.bucket_starts, view.order, qual, cfg.chunk, cfg.a_const,
+            cfg.eps, ctx.visit_budget, cfg.schedule_checks)
+
+
 def _make_qual(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
                pq_luts=None, pq_resid=None, pq_packed=None) -> ops.Qual:
     """Qualification inputs of the batch's Q·L lanes (lane i holds query
@@ -378,29 +425,26 @@ def _make_qual(x, qs, tau_sq, lane_q, cfg: ProberConfig, pq_codes=None,
                          exact_rings=cfg.pq_exact_rings)
 
 
-def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
-                   taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
-                   with_stats: bool = False, pq_codes=None, pq_luts=None,
-                   pq_resid=None, pq_packed=None, group=None):
-    """Batched Alg. 1–3 over Q queries: ``qs`` (Q, d), ``taus`` (Q,), ``rks``
-    (Q, L, 6) round keys. Returns the (Q,) estimates, each the mean of its
-    L per-table estimates; with ``with_stats`` also the deepest folded ring
-    ``probed_k`` (Q, L) and the pooled sample count ``nvisited`` (Q,).
+class Lanes(NamedTuple):
+    """A batch's Q·L lanes ready for the slab loop (:func:`setup_lanes`)."""
+    state: dict                  # (QL,) loop state, by ops.LOOP_STATE's names
+    ctx: LaneCtx
+    view: TableView
+    lane: torch.Tensor           # (QL,) int64 lane ids
+    lane_t: torch.Tensor         # (QL,) int64 their tables
+    qual: ops.Qual
 
-    With ``pq_codes`` (C, M) uint8 and ``pq_luts`` (the batch's (Q, M, Kc)
-    float LUT stack, or a batched ``QuantLUT``) candidates qualify by ADC
-    as the config routes them; ``pq_resid`` (C,) serves banded
-    qualification and ``pq_packed`` (C, M/2) the 4-bit codes.
 
-    ``group`` (a ``torch.distributed`` process group; the index is this
-    rank's shard) switches on pooled ("sync") stopping: one ``all_reduce``
-    at setup and one per slab step (:func:`_table_setup`,
-    :func:`_slab_step`), and the estimates are global, the same on every
-    rank. Without it no collective runs."""
+def setup_lanes(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
+                taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
+                pq_codes=None, pq_luts=None, pq_resid=None, pq_packed=None,
+                group=None) -> Lanes:
+    """Everything :func:`estimate_batch` does before the slab loop: the
+    queries' lanes, ring construction, the central count and the loop's
+    initial state (the arguments are :func:`estimate_batch`'s)."""
     dev = x.device
     nq = qs.shape[0]
     nl = index.n_tables
-    n_rings = index.n_funcs
     if tuple(rks.shape) != (nq, nl, 6):
         raise ValueError(f"rks must be ({nq}, {nl}, 6), got {tuple(rks.shape)}")
     qs = qs.to(dev, torch.float32).contiguous()
@@ -417,18 +461,83 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
         view, ham, qcodes, rks.to(dev, torch.int64).reshape(nq * nl, 6),
         lane_t, qual, qual.codes is None or cfg.pq_exact_central, cfg, group)
     del ham
-    state = _init_state(ctx, est0, visited0, n_rings)
-    kept = [] if _tracing() else None
-    state = _run_lanes(state, ctx, view, lane_t, qual, cfg, group, kept)
-    if kept is not None:
-        with span("prober.tally"):
-            _tally(kept, qual, n_rings)
+    state = _init_state(ctx, est0, visited0, index.n_funcs)
+    return Lanes(state, ctx, view, lane, lane_t, qual)
+
+
+def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
+                   taus: torch.Tensor, cfg: ProberConfig, rks: torch.Tensor,
+                   with_stats: bool = False, pq_codes=None, pq_luts=None,
+                   pq_resid=None, pq_packed=None, group=None,
+                   steps: list | None = None):
+    """Batched Alg. 1–3 over Q queries: ``qs`` (Q, d), ``taus`` (Q,), ``rks``
+    (Q, L, 6) round keys. Returns the (Q,) estimates, each the mean of its
+    L per-table estimates; with ``with_stats`` also the deepest folded ring
+    ``probed_k`` (Q, L) and the pooled sample count ``nvisited`` (Q,).
+
+    With ``pq_codes`` (C, M) uint8 and ``pq_luts`` (the batch's (Q, M, Kc)
+    float LUT stack, or a batched ``QuantLUT``) candidates qualify by ADC
+    as the config routes them; ``pq_resid`` (C,) serves banded
+    qualification and ``pq_packed`` (C, M/2) the 4-bit codes.
+
+    ``group`` (a ``torch.distributed`` process group; the index is this
+    rank's shard) switches on pooled ("sync") stopping: one ``all_reduce``
+    at setup and one per slab step (:func:`_table_setup`,
+    :func:`_slab_step`), and the estimates are global, the same on every
+    rank. Without it no collective runs, and on the card one launch runs
+    every lane's slab loop (:func:`_loop_lanes`); the host loop
+    (:func:`_run_lanes`) runs the steps elsewhere.
+
+    ``steps`` (a list) gets the call's slab steps, tensors the loop has
+    anyway, with no sync; :func:`slab_steps` reads them."""
+    nq, nl, n_rings = qs.shape[0], index.n_tables, index.n_funcs
+    b = setup_lanes(index, x, qs, taus, cfg, rks, pq_codes, pq_luts,
+                    pq_resid, pq_packed, group)
+    state = b.state
+    tracing = _tracing()
+    if _device_loop(x.device, group):
+        counts = _loop_lanes(state, b.ctx, b.view, b.lane, b.lane_t, b.qual,
+                             cfg)
+        if steps is not None:
+            steps.append(counts[:, 2])
+        if tracing:
+            with span("prober.tally"):
+                _tally_loop(counts)
+    else:
+        kept = [] if tracing or steps is not None else None
+        state = _run_lanes(state, b.ctx, b.view, b.lane_t, b.qual, cfg,
+                           group, kept)
+        if steps is not None:
+            steps.append([done for *_, done in kept])
+        if tracing:
+            with span("prober.tally"):
+                _tally(kept, b.qual, n_rings)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests
     probed_k = (state["k"] - 1).clamp(0, n_rings).reshape(nq, nl)
     nvis = state["nvisited"].reshape(nq, nl).sum(1, dtype=torch.int32)
     return ests, probed_k, nvis
+
+
+def slab_steps(record: list) -> dict[str, int]:
+    """The slab steps of the estimates that filled ``record`` (their
+    ``steps`` list): ``lane_steps``, the steps of all their lanes, and
+    ``longest_lane``, the most steps one lane took. The slab loop gives
+    each lane's steps; the host loop each step's ``done`` of the lanes it
+    stepped, where a lane steps from the first step until it is done, so
+    the longest lane takes every step that steps a lane. Syncs."""
+    lane_steps = longest = 0
+    for rec in record:
+        if isinstance(rec, torch.Tensor):           # the slab loop's
+            n = rec.long()
+            lane_steps += int(n.sum())
+            longest = max(longest, int(n.max()) if n.numel() else 0)
+        elif rec:                                   # the host loop's
+            live = torch.stack([(~d).sum() for d in rec])
+            lane_steps += int(live.sum())
+            longest = max(longest, int((live > 0).sum()))
+    return {"lane_steps": lane_steps, "longest_lane": longest}
 
 
 def estimate(index: lsh.LSHIndex, x: torch.Tensor, q: torch.Tensor,

@@ -24,8 +24,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# C entry point -> argtypes (pointers and the stream as c_void_p)
+_P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_float)
+# C entry point -> argtypes (pointers and the stream as c_void_p; a
+# Python float passed as c_float is rounded to float32 as torch rounds it)
 SIGNATURES = {
     "lsh_hash_f32": [_P, _P, _P, _P, _P, _I64, _I, _I, _P],
     "hamming_to_buckets_i32": [_P, _P, _P, _P, _I, _I, _I64, _I, _P],
@@ -38,6 +40,7 @@ SIGNATURES = {
     "adc_batch_f32": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "adc_batch_u8": [_P, _P, _P, _I64] + [_I] * 8 + [_P],
     "slab_qualify": [_P] * 21 + [_I] * 16 + [_P],
+    "slab_loop": [_P] * 30 + [_F] * 3 + [_I] * 18 + [_P],
     "central_qualify": [_P] * 18 + [_I] * 15 + [_P],
     "cache_insert": [_P] * 22 + [_I] * 8 + [_P],
     "neighbor_dists_i8": [_P, _P] + [_I] * 10 + [_I64] * 2 + [_I] * 3 + [_P],

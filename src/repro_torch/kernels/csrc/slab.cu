@@ -2,7 +2,13 @@
 // fused into one launch: the PRP draws, the search of the ring's size
 // cumsum, the CSR lookups and the qualification of the drawn candidates,
 // reduced to each lane's weight sum wq_add (float32) and sample count
-// w_add (int32). The stopping rule stays in torch (core/prober.py).
+// w_add (int32). Under pooled stopping the rule stays in torch
+// (core/prober.py _slab_step), one launch a step.
+//
+// The slab loop (LOOP, local stopping): the same kernel runs every lane's
+// steps to done in one launch. After each step the lane's owner thread
+// applies _slab_step's stopping rule and broadcasts the lane's next ring
+// and slab; at the end it writes the lane's state and its counts.
 //
 // Replaces, on the slab path: src/repro/kernels/l2dist.py, function l2dist
 // (Pallas body _kernel), and src/repro/kernels/adc.py, function adc (Pallas
@@ -10,24 +16,31 @@
 // _slab_step (repro/core/prober.py) resolves with jnp gathers. Here the
 // resolution is fused too: the ring-cumsum row is searched in place, so no
 // (lanes, B) copy of the rows is made, and no candidate id, row or
-// distance passes through device memory.
+// distance passes through device memory. The loop replaces the reference's
+// lax.while_loop over the slab steps.
 //
 // Bound on an H100: bytes -- the candidates' rows (512 B each at d = 128,
 // 32 B as PQ codes), their `starts` and `order` entries and the cumsum
 // sectors around each draw: ~9 MB at 128 lanes x 128 slots exact, ~2.7 us
 // at 3.35 TB/s. In practice a slot is a chain of dependent loads (search,
 // starts, order, row), so latency bounds it; the design shortens the chain.
+// In the loop a lane's steps are a chain too: the longest lane sets the
+// launch's time.
 //
 // Design:
-// * Grid: one block per active lane; a chunk above 128 slots (serve_cfg's
-//   512) is split over a cluster of up to 4 blocks, whose partial sums
-//   block rank 0 adds through distributed shared memory in rank order. No
-//   float atomics: banded sums are deterministic.
+// * Grid: one block per active lane (every lane in the loop); a chunk
+//   above 128 slots (serve_cfg's 512) is split over a cluster of up to 4
+//   blocks, whose partial sums block rank 0 adds through distributed
+//   shared memory in rank order. No float atomics: banded sums are
+//   deterministic.
 // * While the threads run the PRP, cp.async stages the lane's query row
 //   (exact) or LUT (ADC) and a sparse index of its cumsum row (the last
 //   entry of each of <= 1024 windows) into shared memory. A search is then
 //   ~10 steps in shared memory and log2(window) dependent loads in device
-//   memory (11 at B = 2^21, against 21 for a plain binary search).
+//   memory (11 at B = 2^21, against 21 for a plain binary search). In the
+//   loop the query row stays staged across steps, the LUT is staged once
+//   the lane reaches an ADC ring, and the sparse index again only when the
+//   ring changes.
 // * Exact route: one warp per candidate, four candidates in flight per
 //   warp, one float4 per lane at d = 128, fmaf and __shfl_xor in the order
 //   of l2dist_rows_kernel (l2dist.cu), so d^2 is bit-equal to it.
@@ -37,6 +50,9 @@
 //   so each weight equals torch's.
 // * The route is per lane: exact without PQ codes or on a near ring
 //   (k <= exact_rings), else ADC; only the routed one is computed.
+// * The stopping rule (stop_rule) is torch's float32 arithmetic in torch's
+//   order, each operation an IEEE-rounded intrinsic (nvcc would contract
+//   a*b+c into an FMA), so the loop's state is bit-equal to the host loop's.
 // * No tensor cores: the work is a gather plus a GEMV per lane in fp32,
 //   and TF32 would move d^2 across tau^2.
 //
@@ -95,6 +111,26 @@ constexpr int KMAX = 32;       // central_qualify: code length
 
 enum Mode { EXACT = 0, ADC_F32 = 1, ADC_U8 = 2 };
 
+// The slab loop's lane state and stopping rule (LOOP): each lane's row of
+// the prober's state tensors, read at entry and written when it is done.
+struct Loop {
+  int* k;                  // (QL,) ring
+  int* ci;                 // (QL,) slab index within the ring
+  int* w;                  // (QL,) samples drawn in the ring
+  float* wq;               // (QL,) their weight sum
+  float* target;           // (QL,) next schedule anchor
+  float* est;              // (QL,) folded ring estimates
+  int* nvisited;           // (QL,) samples of folded rings
+  bool* ptf;               // (QL,) stopped by condition (2)
+  bool* done;              // (QL,)
+  const float* totals_f;   // (QL, K) |N_k|
+  const float* w_caps;     // (QL, K) schedule caps
+  const float* first;      // (QL, K) first schedule anchors
+  int* counts;             // (QL, 3) out: exact and ADC candidates, steps
+  float a, a2, eps;        // ln(1/delta), 2a and eps rounded to float32
+  int visit_budget, schedule_checks;
+};
+
 struct Args {
   const int* k;            // (A,) ring of each active lane
   const int* ci;           // (A,) slab index within the ring
@@ -115,10 +151,11 @@ struct Args {
   const int* lane_q;       // (QL,) each lane's LUT
   const float* resid;      // (C,) residual norms: banded weights, or null
   const int* thresh;       // (QL,) uint8-LUT thresholds
-  float* wq_add;           // (A,)
+  float* wq_add;           // (A,) one step's sums (not LOOP)
   int* w_add;              // (A,)
   int n_rings, nb, n_points, d, chunk, exact_rings, cb, m, kc, align, vec,
       splits, stride, nidx;
+  Loop lp;                 // LOOP: A = QL, every lane
 };
 
 // The keyed multiply/xorshift PRP on Z_{2^n} (prober._prp_eval) in native
@@ -300,12 +337,76 @@ __device__ __forceinline__ bool lane_sums(Red& red, const float* wt,
   return mine;
 }
 
-template <int MODE, bool PACK>
+// A lane's loop state, held by its owner thread (thread 0 of block rank 0).
+struct LaneState {
+  int k, ci, w, nvisited;
+  float wq, target, est;
+  bool ptf, done;
+};
+
+// One application of prober._slab_step's stopping rule to lane `la`,
+// whose step in ring kc = min(k, K) (PRP domain p_ring) drew w_add
+// candidates of weight sum wq_add. torch's float32 arithmetic in torch's
+// order: p_hat = wq / max(wf, 1), mu_upper and mu_lower as in
+// core/sampling.py (w clamped to 1e-9, a / (2w), 2a / (9w), a / (18w)),
+// ring_est = (|N_k| * wq) / max(wf, 1); each operation an IEEE-rounded
+// intrinsic, so none is contracted into an FMA.
+__device__ __forceinline__ void stop_rule(LaneState& s, float wq_add,
+                                          int w_add, const Loop& lp, int la,
+                                          int n_rings, int chunk,
+                                          int p_ring) {
+  const int rw = la * n_rings + min(s.k, n_rings) - 1;
+  const float wq = __fadd_rn(s.wq, wq_add);
+  const int w = s.w + w_add;
+  const bool exhausted = (s.ci + 1) * chunk >= p_ring;
+  const float wf = __int2float_rn(w);
+  const float wf1 = fmaxf(wf, 1.f);
+  const float ring_est = __fdiv_rn(__fmul_rn(lp.totals_f[rw], wq), wf1);
+  const float p_hat = __fdiv_rn(wq, wf1);
+  const float w_cap = lp.w_caps[rw];
+  const bool at = !lp.schedule_checks || wf >= s.target || wf >= w_cap;
+  const float wc = fmaxf(wf, 1e-9f);
+  const float t = __fdiv_rn(lp.a, __fmul_rn(2.f, wc));
+  const float rt = __fsqrt_rn(t);
+  const float su = __fadd_rn(__fsqrt_rn(__fadd_rn(p_hat, t)), rt);
+  const float mu_u = __fmul_rn(su, su);
+  const float in = __fsub_rn(
+      __fsqrt_rn(__fadd_rn(p_hat, __fdiv_rn(lp.a2, __fmul_rn(9.f, wc)))), rt);
+  const float mu_l = fmaxf(
+      __fsub_rn(__fmul_rn(in, in), __fdiv_rn(lp.a, __fmul_rn(18.f, wc))), 0.f);
+  const bool cond1 = __fsub_rn(mu_u, p_hat) <= lp.eps &&
+                     __fsub_rn(p_hat, mu_l) <= lp.eps;
+  const bool cond2 = mu_u < lp.eps;
+  const bool budget_hit = s.nvisited + w >= lp.visit_budget;
+  const bool ring_done = (at && (cond1 || cond2)) || wf >= w_cap ||
+                         exhausted || budget_hit;
+  s.ptf = s.ptf || (at && cond2);
+  if (ring_done) {
+    s.k += 1;
+    s.ci = 0;
+    s.w = 0;
+    s.wq = 0.f;
+    s.target = lp.first[la * n_rings + min(s.k - 1, n_rings - 1)];
+    s.est = __fadd_rn(s.est, ring_est);
+    s.nvisited += w;
+  } else {
+    s.ci += 1;
+    s.w = w;
+    s.wq = wq;
+    if (at) s.target = __fmul_rn(s.target, 2.f);
+  }
+  s.done = s.k > n_rings || s.ptf || budget_hit;
+}
+
+// One slab step of lane la (not LOOP), or all of the lane's steps until it
+// is done (LOOP), on this block's share of the chunk.
+template <int MODE, bool PACK, bool LOOP>
 __global__ void __launch_bounds__(THREADS) slab_qualify_kernel(Args a) {
   using Lut = typename std::conditional<MODE == ADC_U8, uint8_t, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sidx[NIDX];
   __shared__ Red red;
+  __shared__ int step_next[3];  // LOOP: the lane's k, ci, done after a step
 
   const int la = blockIdx.x / a.splits;
   const int slots = (a.chunk + a.splits - 1) / a.splits;
@@ -313,83 +414,150 @@ __global__ void __launch_bounds__(THREADS) slab_qualify_kernel(Args a) {
   const int ns = max(0, min(slots, a.chunk - s0));
   const int64_t lane = a.lanes[la];
   const int64_t t = a.tid[la];
-  const int kc = min(a.k[la], a.n_rings);
-  const int rw = la * a.n_rings + kc - 1;
-  const bool exact = MODE == EXACT || kc <= a.exact_rings;
-  const int* cum = a.cums + (lane * (a.n_rings + 1) + kc) * (int64_t)a.nb;
+  const bool owner = threadIdx.x == 0 && blockIdx.x % a.splits == 0;
   int* ids = reinterpret_cast<int*>(smem);
   float* wt = reinterpret_cast<float*>(smem) + slots;
   unsigned char* stage = smem + (8 * slots + 15) / 16 * 16;
   const int lut_bytes = a.m * a.kc * (int)sizeof(Lut);
-
-  // asynchronous staging: the routed query row or LUT, the sparse index
-  if (exact)
-    stage_async(stage, reinterpret_cast<const unsigned char*>(
-                           a.qs + lane * a.d), 4 * a.d);
-  else
-    stage_async(stage,
-                reinterpret_cast<const unsigned char*>(a.luts) +
-                    (int64_t)a.lane_q[lane] * lut_bytes,
-                lut_bytes);
-  for (int i = threadIdx.x; i < a.nidx; i += THREADS)
-    cp_async4(&sidx[i], cum + min((int64_t)(i + 1) * a.stride,
-                                  (int64_t)a.nb) - 1);
-
-  // the PRP draws meanwhile: ids[s] holds the draw, or -1 outside the ring
-  const int p_ring = a.prings[rw], cap = a.caps[rw], nbits = a.nbits[rw];
+  const float tsq = a.tau_sq[lane];
+  const int th = MODE == ADC_U8 ? a.thresh[lane] : 0;
   unsigned rk[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) rk[i] = (unsigned)a.rks[6 * la + i];
-  const int idx0 = a.ci[la] * a.chunk + s0;
-  for (int s = threadIdx.x; s < ns; s += THREADS) {
-    const int idx = idx0 + s;
-    const unsigned p = prp((unsigned)idx, rk, (unsigned)(p_ring - 1), nbits);
-    ids[s] = idx < p_ring && (int)p < cap ? (int)p : -1;
-  }
-  cp_async_wait_all();
-  __syncthreads();
 
-  // resolve each draw: upper bound in the sparse index, then in its window
-  // of the cumsum row, then the bucket's start and the point id
-  for (int s = threadIdx.x; s < ns; s += THREADS) {
-    const int p = ids[s];
-    if (p < 0) continue;
-    int lo = 0, hi = a.nidx;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (sidx[mid] > p) hi = mid; else lo = mid + 1;
+  int k = a.k[la], ci = a.ci[la];
+  bool done = false;
+  LaneState st{};
+  int n_exact = 0, n_adc = 0, steps = 0;
+  if (LOOP) {
+    done = a.lp.done[la];
+    if (owner)
+      st = LaneState{k,                  ci,
+                     a.lp.w[la],         a.lp.nvisited[la],
+                     a.lp.wq[la],        a.lp.target[la],
+                     a.lp.est[la],       a.lp.ptf[la],
+                     done};
+  }
+  int staged = -1;    // what the stage holds: 0 the query row, 1 the LUT
+  int staged_k = 0;   // the ring whose sparse index sidx holds
+  while (!done) {
+    const int kc = min(k, a.n_rings);
+    const int rw = la * a.n_rings + kc - 1;
+    const bool exact = MODE == EXACT || kc <= a.exact_rings;
+    const int* cum = a.cums + (lane * (a.n_rings + 1) + kc) * (int64_t)a.nb;
+
+    // asynchronous staging: the routed query row or LUT, the sparse index
+    if ((int)!exact != staged) {
+      if (exact)
+        stage_async(stage, reinterpret_cast<const unsigned char*>(
+                               a.qs + lane * a.d), 4 * a.d);
+      else
+        stage_async(stage,
+                    reinterpret_cast<const unsigned char*>(a.luts) +
+                        (int64_t)a.lane_q[lane] * lut_bytes,
+                    lut_bytes);
+      staged = !exact;
     }
-    int64_t j = a.nb - 1;
-    if (lo < a.nidx) {
-      int64_t wlo = (int64_t)lo * a.stride;
-      int64_t whi = min(wlo + a.stride, (int64_t)a.nb) - 1;
-      while (wlo < whi) {
-        const int64_t mid = (wlo + whi) >> 1;
-        if (__ldg(cum + mid) > p) whi = mid; else wlo = mid + 1;
+    if (kc != staged_k) {
+      for (int i = threadIdx.x; i < a.nidx; i += THREADS)
+        cp_async4(&sidx[i], cum + min((int64_t)(i + 1) * a.stride,
+                                      (int64_t)a.nb) - 1);
+      staged_k = kc;
+    }
+
+    // the PRP draws meanwhile: ids[s] holds the draw, or -1 outside the ring
+    const int p_ring = a.prings[rw], cap = a.caps[rw], nbits = a.nbits[rw];
+    const int idx0 = ci * a.chunk + s0;
+    for (int s = threadIdx.x; s < ns; s += THREADS) {
+      const int idx = idx0 + s;
+      const unsigned p = prp((unsigned)idx, rk, (unsigned)(p_ring - 1), nbits);
+      ids[s] = idx < p_ring && (int)p < cap ? (int)p : -1;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // resolve each draw: upper bound in the sparse index, then in its window
+    // of the cumsum row, then the bucket's start and the point id
+    for (int s = threadIdx.x; s < ns; s += THREADS) {
+      const int p = ids[s];
+      if (p < 0) continue;
+      int lo = 0, hi = a.nidx;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (sidx[mid] > p) hi = mid; else lo = mid + 1;
       }
-      j = wlo;
+      int64_t j = a.nb - 1;
+      if (lo < a.nidx) {
+        int64_t wlo = (int64_t)lo * a.stride;
+        int64_t whi = min(wlo + a.stride, (int64_t)a.nb) - 1;
+        while (wlo < whi) {
+          const int64_t mid = (wlo + whi) >> 1;
+          if (__ldg(cum + mid) > p) whi = mid; else wlo = mid + 1;
+        }
+        j = wlo;
+      }
+      const int prev = j > 0 ? __ldg(cum + j - 1) : 0;
+      int pos = __ldg(a.starts + t * a.nb + j) + (p - prev);
+      pos = min(max(pos, 0), a.n_points - 1);
+      ids[s] = __ldg(a.order + t * a.n_points + pos);
     }
-    const int prev = j > 0 ? __ldg(cum + j - 1) : 0;
-    int pos = __ldg(a.starts + t * a.nb + j) + (p - prev);
-    pos = min(max(pos, 0), a.n_points - 1);
-    ids[s] = __ldg(a.order + t * a.n_points + pos);
+    __syncthreads();
+
+    if (exact)
+      qualify_exact(a.x, a.d, a.vec, reinterpret_cast<const float*>(stage),
+                    tsq, ids, wt, ns);
+    else if (MODE != EXACT)
+      qualify_adc<MODE, PACK>(a.codes, a.cb, a.align, a.kc, stage, a.resid,
+                              tsq, th, ids, wt, ns);
+    __syncthreads();
+
+    float wq;
+    int w;
+    const bool mine = lane_sums(red, wt, ids, ns, a.splits, wq, w);
+    if (!LOOP) {
+      if (mine) {
+        a.wq_add[la] = wq;
+        a.w_add[la] = w;
+      }
+      return;
+    }
+    if (mine) {
+      (exact ? n_exact : n_adc) += w;
+      ++steps;
+      stop_rule(st, wq, w, a.lp, la, a.n_rings, a.chunk, p_ring);
+      step_next[0] = st.k;
+      step_next[1] = st.ci;
+      step_next[2] = st.done;
+    }
+    // every block of the lane takes its next step from block rank 0
+    if (a.splits == 1) {
+      __syncthreads();
+      k = step_next[0];
+      ci = step_next[1];
+      done = step_next[2];
+    } else {
+      cg::cluster_group cl = cg::this_cluster();
+      cl.sync();
+      const int* nx = cl.map_shared_rank(step_next, 0);
+      k = nx[0];
+      ci = nx[1];
+      done = nx[2];
+      if (done) cl.sync();  // rank 0 stays until every block has read
+    }
   }
-  __syncthreads();
-
-  if (exact)
-    qualify_exact(a.x, a.d, a.vec, reinterpret_cast<const float*>(stage),
-                  a.tau_sq[lane], ids, wt, ns);
-  else if (MODE != EXACT)
-    qualify_adc<MODE, PACK>(a.codes, a.cb, a.align, a.kc, stage, a.resid,
-                            a.tau_sq[lane],
-                            MODE == ADC_U8 ? a.thresh[lane] : 0, ids, wt, ns);
-  __syncthreads();
-
-  float wq;
-  int w;
-  if (lane_sums(red, wt, ids, ns, a.splits, wq, w)) {
-    a.wq_add[la] = wq;
-    a.w_add[la] = w;
+  if (LOOP && owner) {
+    a.lp.k[la] = st.k;
+    a.lp.ci[la] = st.ci;
+    a.lp.w[la] = st.w;
+    a.lp.wq[la] = st.wq;
+    a.lp.target[la] = st.target;
+    a.lp.est[la] = st.est;
+    a.lp.nvisited[la] = st.nvisited;
+    a.lp.ptf[la] = st.ptf;
+    a.lp.done[la] = st.done;
+    a.lp.counts[3 * la] = n_exact;
+    a.lp.counts[3 * la + 1] = n_adc;
+    a.lp.counts[3 * la + 2] = steps;
   }
 }
 
@@ -532,10 +700,18 @@ int launch_clusters(void (*kern)(A), const A& args, int blocks, int splits,
   return (int)cudaGetLastError();
 }
 
-template <int MODE, bool PACK>
-int launch(const Args& args, int na, int smem, cudaStream_t stream) {
-  return launch_clusters(slab_qualify_kernel<MODE, PACK>, args,
-                         na * args.splits, args.splits, smem, stream);
+template <bool LOOP>
+int launch(const Args& args, int na, int mode, int packed, int smem,
+           cudaStream_t stream) {
+  void (*kern)(Args) = slab_qualify_kernel<EXACT, false, LOOP>;
+  if (mode == ADC_F32)
+    kern = packed ? &slab_qualify_kernel<ADC_F32, true, LOOP>
+                  : &slab_qualify_kernel<ADC_F32, false, LOOP>;
+  if (mode == ADC_U8)
+    kern = packed ? &slab_qualify_kernel<ADC_U8, true, LOOP>
+                  : &slab_qualify_kernel<ADC_U8, false, LOOP>;
+  return launch_clusters(kern, args, na * args.splits, args.splits, smem,
+                         stream);
 }
 
 template <int MODE, bool PACK>
@@ -548,6 +724,7 @@ int launch_central(const CentralArgs& args, int nql, int smem,
 }  // namespace
 
 // mode: 0 exact only, 1 float32 LUTs, 2 uint8 LUTs (with thresholds).
+// One slab step of na active lanes.
 extern "C" int slab_qualify(
     const int* k, const int* ci, const int64_t* lanes, const int64_t* tid,
     const int64_t* rks, const int* prings, const int* caps, const int* nbits,
@@ -564,14 +741,36 @@ extern "C" int slab_qualify(
             codes,  luts,   lane_q, resid, thresh,    wq_add, w_add,
             n_rings, nb,    n_points, d,   chunk,     exact_rings, cb,
             m,      kc,     align,  vec,   splits,    stride,
-            (nb + stride - 1) / stride};
-  auto s = (cudaStream_t)stream;
-  if (mode == EXACT) return launch<EXACT, false>(args, na, smem, s);
-  if (mode == ADC_F32)
-    return packed ? launch<ADC_F32, true>(args, na, smem, s)
-                  : launch<ADC_F32, false>(args, na, smem, s);
-  return packed ? launch<ADC_U8, true>(args, na, smem, s)
-                : launch<ADC_U8, false>(args, na, smem, s);
+            (nb + stride - 1) / stride, Loop{}};
+  return launch<false>(args, na, mode, packed, smem, (cudaStream_t)stream);
+}
+
+// The slab loop: every one of the nql lanes steps until it is done, its
+// state (k .. done) read and written in place, its counts written.
+extern "C" int slab_loop(
+    int* k, int* ci, int* w, float* wq, float* target, float* est,
+    int* nvisited, bool* ptf, bool* done, const int64_t* lanes,
+    const int64_t* tid, const int64_t* rks, const int* prings,
+    const int* caps, const int* nbits, const float* totals_f,
+    const float* w_caps, const float* first, const int* cums,
+    const int* starts, const int* order, const float* x, const float* qs,
+    const float* tau_sq, const uint8_t* codes, const void* luts,
+    const int* lane_q, const float* resid, const int* thresh, int* counts,
+    float a_const, float a2, float eps, int nql, int n_rings, int nb,
+    int n_points, int d, int chunk, int exact_rings, int mode, int cb, int m,
+    int kc, int packed, int align, int vec, int splits, int smem,
+    int visit_budget, int schedule_checks, void* stream) {
+  const int stride = (nb + NIDX - 1) / NIDX;
+  Loop lp{k,        ci,     w,      wq,     target,   est,
+          nvisited, ptf,    done,   totals_f, w_caps, first,
+          counts,   a_const, a2,    eps,    visit_budget, schedule_checks};
+  Args args{k,      ci,     lanes,  tid,   rks,       prings, caps,
+            nbits,  cums,   starts, order, x,         qs,     tau_sq,
+            codes,  luts,   lane_q, resid, thresh,    nullptr, nullptr,
+            n_rings, nb,    n_points, d,   chunk,     exact_rings, cb,
+            m,      kc,     align,  vec,   splits,    stride,
+            (nb + stride - 1) / stride, lp};
+  return launch<true>(args, nql, mode, packed, smem, (cudaStream_t)stream);
 }
 
 // mode: 0 exact, 1 float32 LUTs, 2 uint8 LUTs (with thresholds). The

@@ -2,8 +2,10 @@
 
 A tensor on the CPU goes to the plain version in :mod:`ref`; a tensor on a
 CUDA device goes to the hand-written kernel, or the call raises. There is no
-fallback. Each wrapper checks device, dtype, shape and contiguity, allocates
-its output with ``torch.empty``, launches on the current stream without
+fallback. :func:`slab_loop` alone runs on the card only: its plain
+counterpart is the prober's host loop of :func:`slab_qualify` steps. Each
+wrapper checks device, dtype, shape and contiguity, allocates its output
+with ``torch.empty``, launches on the current stream without
 synchronising, raises if the launch reported an error, and adds one to its
 count in :data:`LAUNCHES` — there and nowhere else.
 
@@ -28,14 +30,15 @@ from repro_torch.kernels import ref
 
 # launches per wrapper; "l2dist" counts both of its kernels (a tiled call
 # is one launch, whatever its panels), and "l2dist_general" the general
-# one alone, which only its witness wrapper launches
+# one alone, which only its witness wrapper launches; "slab_loop" counts
+# the slab kernel's loop form, "slab_qualify" its one-step form
 LAUNCHES: dict[str, int] = {"lsh_hash": 0, "hamming_to_buckets": 0,
                             "query_lanes": 0, "l2dist": 0,
                             "l2dist_general": 0, "l2dist_rows": 0,
                             "adc_rows": 0, "adc_rows_q8": 0, "adc_batch": 0,
                             "adc_batch_q8": 0, "slab_qualify": 0,
-                            "central_qualify": 0, "cache_insert": 0,
-                            "neighbor_dists": 0}
+                            "slab_loop": 0, "central_qualify": 0,
+                            "cache_insert": 0, "neighbor_dists": 0}
 
 
 def reset_launches() -> None:
@@ -45,7 +48,8 @@ def reset_launches() -> None:
 
 # per wrapper, its calls on either route and their summed work: "bytes"
 # moved and "flops", the operations (integer compares for the Hamming
-# distances and neighbor_dists)
+# distances and neighbor_dists); "slab_loop"'s is a bound, every lane
+# drawing to its visit budget, since its steps are known only on the card
 WORK: dict[str, dict[str, int]] = {name: {"calls": 0, "bytes": 0, "flops": 0}
                                    for name in LAUNCHES}
 
@@ -715,6 +719,36 @@ def _qual_adc(qual: Qual, nql: int,
     return mode, m, kc, cb, packed, align, lut_bytes
 
 
+def _slab_work(na: int, rows: int, qual: Qual) -> tuple[int, int]:
+    """:func:`slab_qualify_work` of ``na`` lanes drawing ``rows``
+    candidates, all exact or, with PQ codes, all by ADC, whichever costs
+    more."""
+    d = qual.x.shape[-1]
+    w = slab_qualify_work(na, d, rows, na)
+    if qual.codes is not None:
+        # rings above exact_rings qualify by ADC: each at the larger cost
+        w = tuple(map(max, w, slab_qualify_work(
+            na, d, 0, 0, rows, na,
+            qual.codes.shape[1] + 4 * (qual.resid is not None),
+            math.prod(qual.luts.shape[1:]) * qual.luts.element_size(),
+            qual.luts.shape[1])))
+    return w
+
+
+def _slab_plan(chunk: int, d: int, lut_bytes: int) -> tuple[int, int]:
+    """The slab kernel's blocks a lane and dynamic shared memory: a lane's
+    chunk is split over up to 4 blocks (one cluster) of <= 128 slots each
+    where it can be; a block's dynamic shared memory holds the lane's query
+    row or LUT, then an id and a weight per slot."""
+    splits = min(4, -(-chunk // 128))
+    slots = -(-chunk // splits)
+    smem = _align16(8 * slots) + _align16(max(4 * d, lut_bytes))
+    if smem > 200 * 1024:
+        raise ValueError(f"d={d}, a {lut_bytes}-byte LUT and {slots} slots "
+                         "per block do not fit shared memory")
+    return splits, smem
+
+
 def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
                  tid: torch.Tensor, rks: torch.Tensor, prings: torch.Tensor,
                  caps: torch.Tensor, nbits: torch.Tensor, cums: torch.Tensor,
@@ -732,16 +766,8 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
     ``kc``, and sums their weights and count. Every lane and table id must
     lie in range.
     """
-    na, d = prings.shape[0], qual.x.shape[-1]
-    w = slab_qualify_work(na, d, na * chunk, na)
-    if qual.codes is not None:
-        # rings above exact_rings qualify by ADC: each at the larger cost
-        w = tuple(map(max, w, slab_qualify_work(
-            na, d, 0, 0, na * chunk, na,
-            qual.codes.shape[1] + 4 * (qual.resid is not None),
-            math.prod(qual.luts.shape[1:]) * qual.luts.element_size(),
-            qual.luts.shape[1])))
-    _work("slab_qualify", *w)
+    na = prings.shape[0]
+    _work("slab_qualify", *_slab_work(na, na * chunk, qual))
     opt = [t for t in qual[3:8] if t is not None]
     if _on_cpu(k, ci, lanes, tid, rks, prings, caps, nbits, cums, starts,
                order, qual.x, qual.qs, qual.tau_sq, *opt):
@@ -782,15 +808,7 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
                          f"got K={n_rings}, chunk={chunk}")
     mode, m, kc, cb, packed, align, lut_bytes = _qual_adc(qual, nql,
                                                           n_points)
-    # a lane's chunk is split over up to 4 blocks (one cluster) of <= 128
-    # slots each where it can be; a block's dynamic shared memory holds the
-    # lane's query row or LUT, then an id and a weight per slot
-    splits = min(4, -(-chunk // 128))
-    slots = -(-chunk // splits)
-    smem = -(-8 * slots // 16) * 16 + -(-max(4 * d, lut_bytes) // 16) * 16
-    if smem > 200 * 1024:
-        raise ValueError(f"d={d}, a {lut_bytes}-byte LUT and {slots} slots "
-                         "per block do not fit shared memory")
+    splits, smem = _slab_plan(chunk, d, lut_bytes)
     vec = int(d % 4 == 0 and qual.x.data_ptr() % 16 == 0)
     wq_add = torch.empty(na, dtype=torch.float32, device=k.device)
     w_add = torch.empty(na, dtype=torch.int32, device=k.device)
@@ -806,6 +824,105 @@ def slab_qualify(k: torch.Tensor, ci: torch.Tensor, lanes: torch.Tensor,
                 qual.exact_rings, mode, cb, m, kc, packed, align, vec, splits,
                 smem)
     return wq_add, w_add
+
+
+# the slab loop's per-lane state, in the kernel's order, with its dtypes
+LOOP_STATE = (("k", torch.int32), ("ci", torch.int32), ("w", torch.int32),
+              ("wq", torch.float32), ("target", torch.float32),
+              ("est", torch.float32), ("nvisited", torch.int32),
+              ("ptf", torch.bool), ("done", torch.bool))
+
+
+def slab_loop(state: dict, lanes: torch.Tensor, tid: torch.Tensor,
+              rks: torch.Tensor, prings: torch.Tensor, caps: torch.Tensor,
+              nbits: torch.Tensor, totals_f: torch.Tensor,
+              w_caps: torch.Tensor, first_targets: torch.Tensor,
+              cums: torch.Tensor, starts: torch.Tensor, order: torch.Tensor,
+              qual: Qual, chunk: int, a_const: float, eps: float,
+              visit_budget: int, schedule_checks: bool) -> torch.Tensor:
+    """Alg. 2's slab loop for every lane in one launch, local stopping:
+    each lane runs :func:`slab_qualify`'s step, then the stopping rule of
+    ``prober._slab_step`` (without a process group), until it is done.
+    Returns ``counts`` (QL, 3) int32: each lane's candidates qualified
+    exactly, by ADC, and its slab steps.
+
+    ``state`` maps the names of :data:`LOOP_STATE` to (QL,) tensors of
+    their dtypes, read and written in place; the lanes' rows of the other
+    arguments are ``slab_qualify``'s (``lanes`` and ``tid`` int64 for
+    every lane, ``rks`` (QL, 6) int64, ``prings``/``caps``/``nbits`` (QL,
+    K) int32), beside the ring tables ``totals_f``, ``w_caps`` and
+    ``first_targets`` (QL, K) float32. ``a_const``, ``eps`` and the
+    ``schedule_checks`` flag are the config's, ``visit_budget`` the lanes'
+    budget. The card only: on the CPU the prober runs the host loop, whose
+    step is :func:`slab_qualify`'s plain version."""
+    for nm, dtype in LOOP_STATE:
+        _check(state[nm], nm, dtype, 1)
+    for t, nm in ((lanes, "lanes"), (tid, "tid")):
+        _check(t, nm, torch.int64, 1)
+    _check(rks, "rks", torch.int64, 2)
+    for t, nm in ((prings, "prings"), (caps, "caps"), (nbits, "nbits")):
+        _check(t, nm, torch.int32, 2)
+    for t, nm in ((totals_f, "totals_f"), (w_caps, "w_caps"),
+                  (first_targets, "first_targets")):
+        _check(t, nm, torch.float32, 2)
+    _check(cums, "cums", torch.int32, 3)
+    _check(starts, "starts", torch.int32, 2)
+    _check(order, "order", torch.int32, 2)
+    _check(qual.x, "x", torch.float32, 2)
+    _check(qual.qs, "qs", torch.float32, 2)
+    _check(qual.tau_sq, "tau_sq", torch.float32, 1)
+    nql, n_rings = prings.shape
+    nb = cums.shape[-1]
+    nl, n_points = order.shape
+    d = qual.x.shape[1]
+    tables = (prings, caps, nbits, totals_f, w_caps, first_targets)
+    if (any(state[nm].shape != (nql,) for nm, _ in LOOP_STATE)
+            or lanes.shape != (nql,) or tid.shape != (nql,)
+            or rks.shape != (nql, 6)
+            or any(t.shape != (nql, n_rings) for t in tables)
+            or cums.shape != (nql, n_rings + 1, nb)
+            or starts.shape != (nl, nb) or qual.x.shape[0] < n_points
+            or qual.qs.shape != (nql, d) or qual.tau_sq.shape != (nql,)):
+        shapes = {nm: tuple(t.shape) for nm, t in (
+            *((nm, state[nm]) for nm, _ in LOOP_STATE), ("lanes", lanes),
+            ("tid", tid), ("rks", rks), ("prings", prings), ("caps", caps),
+            ("nbits", nbits), ("totals_f", totals_f), ("w_caps", w_caps),
+            ("first_targets", first_targets), ("cums", cums),
+            ("starts", starts), ("order", order), ("x", qual.x),
+            ("qs", qual.qs), ("tau_sq", qual.tau_sq))}
+        raise ValueError(f"slab_loop shapes do not agree: {shapes}")
+    if n_rings < 1 or chunk < 1 or not 0 < visit_budget < 2 ** 31:
+        raise ValueError(f"slab_loop needs K >= 1 rings, chunk >= 1 and a "
+                         f"visit budget in [1, 2^31), got K={n_rings}, "
+                         f"chunk={chunk}, budget={visit_budget}")
+    opt = [t for t in qual[3:8] if t is not None]
+    if _on_cpu(*(state[nm] for nm, _ in LOOP_STATE), lanes, tid, rks,
+               *tables, cums, starts, order, qual.x, qual.qs, qual.tau_sq,
+               *opt):
+        raise ValueError("slab_loop runs on the card only; on the CPU the "
+                         "prober steps the lanes itself")
+    mode, m, kc, cb, packed, align, lut_bytes = _qual_adc(qual, nql,
+                                                          n_points)
+    splits, smem = _slab_plan(chunk, d, lut_bytes)
+    vec = int(d % 4 == 0 and qual.x.data_ptr() % 16 == 0)
+    # a lane draws fewer than visit_budget + chunk candidates: it stops at
+    # the step that takes its samples to the budget
+    _work("slab_loop", *_slab_work(nql, nql * (visit_budget + chunk - 1),
+                                   qual))
+    counts = torch.empty((nql, 3), dtype=torch.int32, device=lanes.device)
+    if nql:
+        _launch("slab_loop", "slab_loop",
+                *(state[nm].data_ptr() for nm, _ in LOOP_STATE),
+                lanes.data_ptr(), tid.data_ptr(), rks.data_ptr(),
+                *(t.data_ptr() for t in tables), cums.data_ptr(),
+                starts.data_ptr(), order.data_ptr(), qual.x.data_ptr(),
+                qual.qs.data_ptr(), qual.tau_sq.data_ptr(), _ptr(qual.codes),
+                _ptr(qual.luts), _ptr(qual.lane_q), _ptr(qual.resid),
+                _ptr(qual.thresh), counts.data_ptr(), a_const, 2.0 * a_const,
+                eps, nql, n_rings, nb, n_points, d, chunk, qual.exact_rings,
+                mode, cb, m, kc, packed, align, vec, splits, smem,
+                visit_budget, int(schedule_checks))
+    return counts
 
 
 # ---- the central bucket (Alg. 3) -----------------------------------------

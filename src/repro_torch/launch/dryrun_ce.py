@@ -18,7 +18,8 @@ FLOPs and bytes are ``cost.py``'s aten figures plus, on the card, the
 hand-written kernels' ``ops.WORK`` (which no dispatch mode sees; on the CPU
 their plain versions run as aten ops and are counted there). ``ops.WORK``
 counts each kernel call at the most its shapes allow (every lane draws its
-whole chunk). ``model_flops`` is the reference's: the brute-force cost the
+whole chunk); the slab loop's launch is counted at the chunks its lanes'
+steps drew, which the counted call reports. ``model_flops`` is the reference's: the brute-force cost the
 estimator replaces, 2·N·d·Q over the global corpus.
 
   python -m repro_torch.launch.dryrun_ce [--mode sync] [--device cpu \\
@@ -34,7 +35,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import distributed as D
+from repro_torch.core import distributed as D, prober
 from repro_torch.core.config import ProberConfig
 from repro_torch.data import vectors
 from repro_torch.kernels import ops
@@ -54,8 +55,10 @@ def estimate_cell(n_per_shard: int, dim: int, n_queries: int,
     target cardinality) over ``group`` (the default group: a fake one).
     Returns the measurements: ``cost.measure``'s record, ``wall_ms`` (CUDA
     events; None on the CPU), ``device_peak_bytes`` (the allocator's peak
-    over the estimates; None on the CPU), ``slab_steps``, ``work`` (the
-    kernels' ``ops.WORK``) and ``launches``."""
+    over the estimates; None on the CPU), ``slab_steps`` (the counted
+    estimate's lane-steps and longest lane, ``prober.slab_steps``),
+    ``work`` (the kernels' ``ops.WORK``, the slab loop's from the steps
+    its lanes took) and ``launches``."""
     dev = ops.resolve_device(device)
     group = dist.group.WORLD if group is None else group
     world = dist.get_world_size(group)
@@ -69,8 +72,9 @@ def estimate_cell(n_per_shard: int, dim: int, n_queries: int,
     del x
     rks = D.shard_round_keys(seed, n_queries, cfg.n_tables, dev, group)
 
-    def run():
-        return D.estimate_sharded(state, qs, taus, cfg, rks, group, mode)
+    def run(steps=None):
+        return D.estimate_sharded(state, qs, taus, cfg, rks, group, mode,
+                                  steps)
 
     cuda = dev.type == "cuda"
     run()                                   # warm-up: loads the kernels
@@ -88,12 +92,21 @@ def estimate_cell(n_per_shard: int, dim: int, n_queries: int,
         peak = torch.cuda.max_memory_allocated(dev)
     ops.reset_work()
     ops.reset_launches()
-    est, rec = cost.measure(run, state, qs, taus, rks)
+    steps = []
+    est, rec = cost.measure(lambda: run(steps), state, qs, taus, rks)
     if cuda:
         torch.cuda.synchronize(dev)
-    rec.update(wall_ms=wall_ms, device_peak_bytes=peak,
-               slab_steps=ops.WORK["slab_qualify"]["calls"],
-               work={k: dict(v) for k, v in ops.WORK.items() if v["calls"]},
+    steps = prober.slab_steps(steps)
+    work = {k: dict(v) for k, v in ops.WORK.items() if v["calls"]}
+    if "slab_loop" in work and not cfg.use_pq:
+        # ops.WORK counts the loop at its bound (every lane drawing to its
+        # visit budget); count the chunks its lanes' steps drew, as the host
+        # loop's steps are counted, each at the exact route's cost
+        n = steps["lane_steps"]
+        nbytes, flops = ops.slab_qualify_work(n, dim, n * cfg.chunk, n)
+        work["slab_loop"].update(bytes=nbytes, flops=flops)
+    rec.update(wall_ms=wall_ms, device_peak_bytes=peak, slab_steps=steps,
+               work=work,
                launches={k: v for k, v in ops.LAUNCHES.items() if v},
                estimates_finite=bool(torch.isfinite(est).all()),
                n_estimates=int(est.numel()))
