@@ -7,10 +7,33 @@ found by the name that ``BENCHMARK.json`` or the configuration gives:
 
 * ``configs/<config>.json``: the deployment (sizes, prober settings, the
   reference that checks it and the limits of the comparison);
-* ``traffic/<mix>.json``: the mix's parameters, read by
-  ``generators/<generator>.py``;
+* ``traffic/<mix>.json``: the mix's parameters, among them the
+  ``driver`` that runs its calls (and, for the plan driver, the
+  ``generator`` of its pairs);
+* ``drivers/<driver>.py``: what one call of the window does to the
+  program, and the record of it that the check replays;
 * ``reference/<reference>.py``: the plain reference;
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(ctx)``.
+
+A driver module has ``open(state, cfg, pcfg, traffic, pool_q, pool_t,
+seed, dev, tag)``, which returns an object with:
+
+* ``prepare(i)``: the client's side of call ``i`` (its inputs gathered
+  from the pool), before the clock starts;
+* ``call(i)``: call ``i``, returning once its answers are on the host:
+  ``(ests (n,), probed_k (n, L), nvisited (n,), record)``, host tensors;
+* ``counters()``: the driver's own counters (``{}`` if none);
+* ``state``: the program's state as the calls so far left it.
+
+A record is the list of what the call did, in order: ``("ingest",
+first_row, n_rows)``, rows of ``data.heldout``; ``("estimate", pairs,
+round_keys, slots)``, answers the program probed; ``("reuse", pairs,
+slots)``, answers it served from an earlier one. ``pairs`` (pool pair
+indices) and ``round_keys`` are each a tensor or a function of no
+arguments that makes it again (one that holds neither the driver nor the
+program's state); ``slots`` are the positions of the op's answers in the
+call's (None: all). The harness times and reports; a driver times
+nothing.
 """
 from __future__ import annotations
 
@@ -28,7 +51,7 @@ from typing import NamedTuple
 
 import torch
 
-from cebench.harness import data, stats, trace
+from cebench.harness import data, program, stats, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
 GIB = 2.0 ** 30
@@ -64,7 +87,7 @@ class Cell(NamedTuple):
     chips: int
     config: dict
     traffic: dict
-    generator: object
+    driver: object
     reference: object
     end_to_end: list
     per_layer: list          # (metric entry, reader module)
@@ -79,6 +102,8 @@ def load_cell(root: Path, workload: str) -> Cell:
     bench = root / "cebench"
     config = _json(bench / "configs" / f"{w['config']}.json")
     traffic = _json(bench / "traffic" / f"{w['traffic']}.json")
+    if "driver" not in traffic:
+        raise CellError(f"traffic {w['traffic']!r} names no driver")
 
     def mine(metric):
         return "workloads" not in metric or workload in metric["workloads"]
@@ -86,8 +111,7 @@ def load_cell(root: Path, workload: str) -> Cell:
     layers = [(m, load_module(bench / "metrics" / f"{m['name']}.py"))
               for m in spec["per_layer"] if mine(m)]
     return Cell(workload, int(w["chips"]), config, traffic,
-                load_module(bench / "generators"
-                            / f"{traffic['generator']}.py"),
+                load_module(bench / "drivers" / f"{traffic['driver']}.py"),
                 load_module(bench / "reference" / f"{config['reference']}.py"),
                 e2e, layers)
 
@@ -145,22 +169,38 @@ def prober_config(cfg: dict):
     return ProberConfig(**cfg["prober"])
 
 
+class Call(NamedTuple):
+    answers: tuple           # (ests, probed_k, nvisited) on the host
+    record: list             # what the call did, in order
+
+
 class Window(NamedTuple):
     latencies: list          # seconds, every call of the window
     seconds: float           # from the first call to the last answer
-    outputs: list            # (ests, probed_k, nvisited) on the host
+    calls: list              # Call, every call of the window
     profile: object          # the profiler of the traced calls, or None
+    counters: dict | None    # MetricCtx.counters
 
 
-def _call(estimate, state, pool_q, pool_t, n_t, traffic, i, pcfg):
-    pairs = traffic.pairs(i)
-    qi, ti = pairs // n_t, pairs % n_t
-    qs, taus = pool_q[qi], pool_t[qi, ti]
-    rks = traffic.round_keys(i)
+def timed_call(drv, i: int):
+    """``(seconds, Call)``: call ``i`` of the driver, timed from the call
+    until its answers are on the host (its ``prepare`` before that)."""
+    drv.prepare(i)
     t0 = time.perf_counter()
-    ests, probed, nvis = estimate(state, qs, taus, pcfg, rks=rks)
-    out = (ests.cpu(), probed.cpu(), nvis.cpu())
-    return time.perf_counter() - t0, out
+    ests, probed, nvis, record = drv.call(i)
+    return time.perf_counter() - t0, Call((ests, probed, nvis), record)
+
+
+def counters_now(drv) -> dict:
+    """The program's counters, its tally (where it keeps one) and the
+    driver's counters now, in one dict."""
+    out = program.counters()
+    out.update(program.tally() or {})
+    for k, v in drv.counters().items():
+        if k in out:
+            raise CellError(f"the driver's counter {k!r} is the program's")
+        out[k] = v
+    return out
 
 
 def _spanned(plain, span: str):
@@ -172,49 +212,66 @@ def _spanned(plain, span: str):
     return call
 
 
-def run_window(estimate, state, pool_q, pool_t, traffic, pcfg, seconds,
-               trace_batches: int = 0) -> Window:
+def traced_calls(drv, first: int, n: int, dev):
+    """Calls ``first .. first + n - 1`` under the profiler (of the card
+    too where ``dev`` is one), each in a :data:`trace.BATCH` span, with
+    each function of :data:`trace.LAYER_SPANS` in a span of its own.
+    Returns ``(latencies, calls, profiler, counters)``, the last what
+    :func:`counters_now` moved by over the calls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    patched = []
+    for mod_name, attr, span in trace.LAYER_SPANS:
+        mod = importlib.import_module(mod_name)
+        plain = getattr(mod, attr)
+        patched.append((mod, attr, plain))
+        setattr(mod, attr, _spanned(plain, span))
+    lat, calls = [], []
+    before = counters_now(drv)
+    try:
+        with profile(activities=acts) as prof:
+            for i in range(first, first + n):
+                with record_function(trace.BATCH):
+                    dt, c = timed_call(drv, i)
+                lat.append(dt)
+                calls.append(c)
+    finally:
+        for mod, attr, plain in patched:
+            setattr(mod, attr, plain)
+    return lat, calls, prof, program.diff(before, counters_now(drv))
+
+
+def traced_counters(moved: dict, calls: list) -> dict | None:
+    """``moved``, what the counters moved by over the traced ``calls``,
+    where the program's tally in it sums exactly their estimates (one an
+    estimate op of their records); else None."""
+    n = sum(op[0] == "estimate" for c in calls for op in c.record)
+    return moved if moved.get("calls") == n else None
+
+
+def run_window(drv, seconds, dev, trace_batches: int = 0) -> Window:
     """The closed loop of one client: call after call until ``seconds``
     have passed, each call ending when its answers are on the host. With
-    ``trace_batches``, the first that many calls run under the profiler,
-    each in a :data:`trace.BATCH` span, with each function of
-    :data:`trace.LAYER_SPANS` in a span of its own."""
-    n_t = pool_t.shape[1]
-    lat, outs, prof = [], [], None
+    ``trace_batches``, the first that many calls run under the profiler
+    (:func:`traced_calls`), and their counters are kept as
+    :func:`traced_counters` says."""
+    lat, calls, prof, counts = [], [], None, None
     i = 0
     t_start = time.perf_counter()
     if trace_batches:
-        from torch.profiler import ProfilerActivity, profile, record_function
-        acts = [ProfilerActivity.CPU]
-        if pool_q.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        patched = []
-        for mod_name, attr, span in trace.LAYER_SPANS:
-            mod = importlib.import_module(mod_name)
-            plain = getattr(mod, attr)
-            patched.append((mod, attr, plain))
-            setattr(mod, attr, _spanned(plain, span))
-        try:
-            with profile(activities=acts) as prof:
-                for i in range(trace_batches):
-                    with record_function(trace.BATCH):
-                        dt, out = _call(estimate, state, pool_q, pool_t, n_t,
-                                        traffic, i, pcfg)
-                    lat.append(dt)
-                    outs.append(out)
-        finally:
-            for mod, attr, plain in patched:
-                setattr(mod, attr, plain)
+        lat, calls, prof, moved = traced_calls(drv, 0, trace_batches, dev)
+        counts = traced_counters(moved, calls)
         i = trace_batches
     while True:
-        dt, out = _call(estimate, state, pool_q, pool_t, n_t, traffic, i,
-                        pcfg)
+        dt, c = timed_call(drv, i)
         lat.append(dt)
-        outs.append(out)
+        calls.append(c)
         i += 1
         if time.perf_counter() - t_start >= seconds:
             break
-    return Window(lat, time.perf_counter() - t_start, outs, prof)
+    return Window(lat, time.perf_counter() - t_start, calls, prof, counts)
 
 
 # ---- the check ------------------------------------------------------------------
@@ -265,42 +322,126 @@ def est_gap(mine: torch.Tensor, ref: torch.Tensor) -> float:
     return float(((m - r).abs() / r.abs().clamp_min(1.0)).max())
 
 
-def check(cell: Cell, seed: int, mine: dict, x_pad, pool_q, pool_t, traffic,
-          outputs: list, dev, traced: int = 0):
-    """The numbers compared: the program's build (``mine``) against the
-    reference's, element for element, and the answers of a sample of the
-    window's calls drawn from the seed, with the ``traced`` first calls,
-    against the reference's for the same inputs. Returns ``(compared,
-    picked calls, the reference's index, its tally of the traced calls'
-    slab candidates)``."""
+def field(v):
+    """A record's ``pairs`` or ``round_keys``: the tensor, made again
+    where the record holds the function that makes it."""
+    return torch.as_tensor(v() if callable(v) else v)
+
+
+def slots_of(op, n: int) -> torch.Tensor:
+    """The positions (int64, on the host) of an op's answers in its
+    call's ``n``."""
+    s = op[-1]
+    return torch.arange(n) if s is None else torch.as_tensor(s).long().cpu()
+
+
+class Source(NamedTuple):
+    """The last probed answer of a pool pair, as a reuse is judged by it."""
+    est: torch.Tensor        # () float32, the program's answer
+    probed_k: torch.Tensor   # (L,) its probe's deepest rings
+    n_valid: int             # live rows when it was probed
+    w_epoch: int             # ingests that had moved W by then
+
+
+def check(cell: Cell, seed: int, mine: dict, x_pad, pool_q, pool_t,
+          calls: list, first: int, dev, traced: int = 0):
+    """The numbers compared. ``calls`` are every call of the run in
+    order, the warm ones first and the window's from ``first``. Their
+    records are replayed in order on the reference, built from the seed's
+    corpus ``x_pad``: an ingest updates it (``reference.update``); an
+    estimate op of a sampled call (the seed's draw of the window's calls,
+    with its ``traced`` first ones) is compared with the reference's
+    answers to the same pairs and round keys; a reuse op with the last
+    earlier probed answer of its pair, bit for bit, and it is stale where
+    W moved since that probe, or an ingest since put a row within the
+    probe's ``probed_k`` of the query's code in some table. Then the
+    program's build (``mine``) against the reference's state.
+
+    Returns ``(compared, picked calls, the reference's index, its tally
+    of the traced calls' slab candidates)``; ``compared`` has
+    ``stale_serves`` where a record holds a reuse op."""
     cfg, ref = cell.config, cell.reference
-    n = cfg["n"]
+    pc = cfg["prober"]
+    nl = pc["n_tables"]
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
-    ri = ref.build(x_pad, n, cfg["prober"],
-                   data.generator(seed, "build", dev))
-    theirs = ref_arrays(ri)
-    build_diff = sum(count_diff(mine[k], theirs[k]) for k in mine)
-    n_calls = len(outputs)
+    ri = ref.build(x_pad, cfg["n"], pc, data.generator(seed, "build", dev))
+    n_calls = len(calls) - first
     picks = sorted(set(random.Random(data.sub_seed(seed, "check")).sample(
         range(n_calls), min(int(cell.traffic["check_batches"]), n_calls)))
         | set(range(min(traced, n_calls))))
-    stats_diff, gap = 0, 0.0
+    sampled = {first + p for p in picks}
+    reuses = any(op[0] == "reuse" for c in calls for op in c.record)
+    last: dict = {}              # pool pair -> Source, where reuses
+    pool_codes: dict = {}        # W epoch -> the pool's codes under it
+    stats_diff = stale = 0
+    gap, w_epoch, laid_out = 0.0, 0, True
     tally = dict.fromkeys(SLAB_TALLY, 0)
     n_t = pool_t.shape[1]
-    for i in picks:
-        pairs = traffic.pairs(i)
-        qi, ti = pairs // n_t, pairs % n_t
-        r_est, r_pk, r_nv = ref.estimate(ri, x_pad, pool_q[qi],
-                                         pool_t[qi, ti],
-                                         traffic.round_keys(i), cfg["prober"],
-                                         tally=tally if i < traced else None)
-        m_est, m_pk, m_nv = outputs[i]
-        stats_diff += int(((m_pk != r_pk.cpu()).any(1)
-                           | (m_nv != r_nv.cpu())).sum())
-        gap = max(gap, est_gap(m_est, r_est.cpu()))
-    return ({"build_diff": build_diff, "stats_diff": stats_diff,
-             "est_gap": gap}, picks, ri, tally)
+    for ci, call in enumerate(calls):
+        m_est, m_pk, m_nv = call.answers
+        covered = torch.zeros(m_est.shape[0], dtype=torch.int64)
+        for op in call.record:
+            kind = op[0]
+            if kind == "ingest":
+                w0 = ri.w
+                ri = ref.update(ri, data.heldout(cfg, seed, int(op[1]),
+                                                 int(op[2]), dev), pc,
+                                layout=False)
+                laid_out = False
+                w_epoch += int(not torch.equal(ri.w, w0))
+                continue
+            if kind not in ("estimate", "reuse"):
+                raise CellError(f"a record holds an unknown op {kind!r}")
+            slots = slots_of(op, m_est.shape[0])
+            covered.index_add_(0, slots, torch.ones_like(slots))
+            if kind == "estimate" and not (reuses or ci in sampled):
+                continue
+            pairs = field(op[1])
+            if kind == "estimate":
+                if ci in sampled:
+                    if not laid_out:
+                        ri, laid_out = ref.relayout(ri), True
+                    qi, ti = pairs // n_t, pairs % n_t
+                    r_est, r_pk, r_nv = ref.estimate(
+                        ri, ri.x, pool_q[qi], pool_t[qi, ti], field(op[2]),
+                        pc, tally=tally if 0 <= ci - first < traced
+                        else None)
+                    stats_diff += int(((m_pk[slots] != r_pk.cpu()).any(1)
+                                       | (m_nv[slots] != r_nv.cpu())).sum())
+                    gap = max(gap, est_gap(m_est[slots], r_est.cpu()))
+                if reuses:
+                    for p, s in zip(pairs.tolist(), slots.tolist()):
+                        last[p] = Source(m_est[s], m_pk[s], ri.n_valid,
+                                         w_epoch)
+                continue
+            for p, s in zip(pairs.tolist(), slots.tolist()):
+                src = last.get(p)
+                if src is None or count_diff(m_est[s], src.est):
+                    stats_diff += 1
+                if src is None:
+                    continue
+                if src.w_epoch != w_epoch:
+                    stale += 1
+                elif src.n_valid < ri.n_valid:
+                    if w_epoch not in pool_codes:
+                        pool_codes[w_epoch] = ref.query_codes(ri, pool_q, nl)
+                    qc = pool_codes[w_epoch][p // n_t]          # (L, K)
+                    rows = ri.codes[:, src.n_valid:ri.n_valid]  # (L, R, K)
+                    ham = (rows != qc[:, None, :]).sum(-1)
+                    pk = src.probed_k.to(ham.device).long()
+                    stale += int(bool((ham <= pk[:, None]).any()))
+        # an answer that no op names, or two do, is not accounted for
+        stats_diff += int((covered != 1).sum())
+    if not laid_out:
+        ri = ref.relayout(ri)
+    theirs = ref_arrays(ri)
+    build_diff = sum(count_diff(mine[k], theirs[k]) for k in mine)
+    compared = {"build_diff": build_diff, "stats_diff": stats_diff,
+                "est_gap": gap}
+    if reuses:
+        compared["stale_serves"] = stale
+    return compared, picks, ri, tally
 
 
 # what the reference counts of the slab steps of the calls it follows: the
@@ -329,11 +470,60 @@ def make_inputs(cfg: dict, traffic: dict, seed: int, dev):
     return x, q, t, cards
 
 
+class SetUp(NamedTuple):
+    driver: object           # the window's driver
+    pool_q: torch.Tensor
+    pool_t: torch.Tensor
+    cards: torch.Tensor      # exact counts of the pool's pairs in the corpus
+    warm: list               # Call, the warm calls
+    build_s: float
+
+
+def set_up(cell: Cell, seed: int, dev) -> SetUp:
+    """What a run makes before its window: the inputs, the build, and the
+    warm calls, one a shape, of a driver of their own (tag ``warm``); the
+    window's driver opens on the state they left. The harness's corpus is
+    not the system's (the state holds its own padded copy): it goes
+    before the window and is made again from the seed for the check."""
+    from repro_torch.core import estimator as E
+    cfg, tr = cell.config, cell.traffic
+    pcfg = prober_config(cfg)
+    x, pool_q, pool_t, cards = make_inputs(cfg, tr, seed, dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    state = E.build(x, pcfg, generator=data.generator(seed, "build", dev),
+                    capacity=int(cfg["capacity"]), device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    del x
+
+    def open_(st, tag):
+        return cell.driver.open(st, cfg, pcfg, tr, pool_q, pool_t, seed, dev,
+                                tag)
+    drv = open_(state, "warm")
+    warm = [timed_call(drv, i)[1] for i in range(int(tr["warm_batches"]))]
+    drv = open_(drv.state, "window")
+    sync(dev)
+    return SetUp(drv, pool_q, pool_t, cards, warm, build_s)
+
+
+def answer_pairs(call: Call) -> torch.Tensor:
+    """The pool pair of each of a call's answers (-1 where no op names
+    it), on the host."""
+    out = torch.full((call.answers[0].shape[0],), -1, dtype=torch.int64)
+    for op in call.record:
+        if op[0] != "ingest":
+            out[slots_of(op, out.shape[0])] = field(op[1]).cpu().long()
+    return out
+
+
 def run_cell(root: Path, workload: str, seed: int, seconds: float,
              trace_on: bool, device=None, log=print, estimate=None):
     """One run; returns the result line as a dict. ``device`` None means
-    the card, which must be there; ``estimate`` replaces the entry the
-    window drives (the fault tests break it underneath)."""
+    the card, which must be there; ``estimate`` replaces
+    ``estimator.estimate_batch_stats``, the entry every driver reaches,
+    for the set-up and the window (the fault tests break it
+    underneath)."""
     cell = load_cell(root, workload)
     kernels_built = any((root / "build" / "kernels").glob("*.so"))
     if device is None:
@@ -346,40 +536,25 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     dev = torch.device(device)
     cfg, tr = cell.config, cell.traffic
     from repro_torch.core import estimator as E
-    estimate = estimate or E.estimate_batch_stats
-    pcfg = prober_config(cfg)
+    plain = E.estimate_batch_stats
+    if estimate is not None:
+        E.estimate_batch_stats = estimate
+    try:
+        su = set_up(cell, seed, dev)
+        setup_s = process_age_s()
+        cuda = dev.type == "cuda"
+        setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
 
-    # set-up: inputs, the build, one warm call a shape. The harness's
-    # corpus is not the system's (the state holds its own padded copy): it
-    # goes before the window and is made again from the seed for the check
-    x, pool_q, pool_t, cards = make_inputs(cfg, tr, seed, dev)
-    sync(dev)
-    t0 = time.perf_counter()
-    state = E.build(x, pcfg, generator=data.generator(seed, "build", dev),
-                    capacity=int(cfg["capacity"]), device=dev)
-    sync(dev)
-    build_s = time.perf_counter() - t0
-    del x
-    n_pairs = pool_t.numel()
-    gen = cell.generator
-    warm = gen.make(tr, n_pairs, pcfg.n_tables, seed, dev, tag="warm")
-    for i in range(int(tr["warm_batches"])):
-        _call(estimate, state, pool_q, pool_t, pool_t.shape[1], warm, i,
-              pcfg)
-    traffic = gen.make(tr, n_pairs, pcfg.n_tables, seed, dev)
-    sync(dev)
-    setup_s = process_age_s()
-    cuda = dev.type == "cuda"
-    setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    if cuda:
-        torch.cuda.reset_peak_memory_stats(dev)
-
-    host0 = host_counters()
-    win = run_window(estimate, state, pool_q, pool_t, traffic, pcfg,
-                     seconds, int(tr["trace_batches"]) if trace_on else 0)
-    sync(dev)
-    window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    host1 = host_counters()
+        host0 = host_counters()
+        traced = int(tr["trace_batches"]) if trace_on else 0
+        win = run_window(su.driver, seconds, dev, traced)
+        sync(dev)
+        window_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        host1 = host_counters()
+    finally:
+        E.estimate_batch_stats = plain
     lat_ms = [1e3 * v for v in win.latencies]
     log(json.dumps({"record": "window", "calls": len(lat_ms),
                     "seconds": win.seconds,
@@ -392,39 +567,49 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
                     "cpus": len(os.sched_getaffinity(0)),
                     "kernels_built_at_start": kernels_built}))
     log(f"window: {len(win.latencies)} calls in {win.seconds:.3f} s "
-        f"(set-up {setup_s:.3f} s, build {build_s:.3f} s)", file=sys.stderr)
+        f"(set-up {setup_s:.3f} s, build {su.build_s:.3f} s)",
+        file=sys.stderr)
 
     # the check, once the program's state is freed
     t_check = time.perf_counter()
-    mine = index_arrays(state)
-    del state
+    mine = index_arrays(su.driver.state)
+    su = su._replace(driver=None)
     if cuda:
         torch.cuda.empty_cache()
-    traced = int(tr["trace_batches"]) if trace_on else 0
     x_pad = torch.nn.functional.pad(make_corpus(cfg, seed, dev)[0],
                                     (0, 0, 0, int(cfg["capacity"]) - cfg["n"]))
-    compared, picks, ri, tally = check(cell, seed, mine, x_pad, pool_q,
-                                       pool_t, traffic, win.outputs, dev,
-                                       traced)
+    compared, picks, ri, tally = check(cell, seed, mine, x_pad, su.pool_q,
+                                       su.pool_t, su.warm + win.calls,
+                                       len(su.warm), dev, traced)
     del x_pad
     check_s = time.perf_counter() - t_check
     limits = cfg["limits"]
-    correct = all(compared[k] <= limits[k] for k in compared)
-    n_calls = len(win.outputs)
+    no_limit = [k for k in compared if k not in limits]
+    correct = not no_limit and all(compared[k] <= limits[k] for k in compared)
+    ops = [op for c in su.warm + win.calls for op in c.record]
+    ingested = sum(int(op[2]) for op in ops if op[0] == "ingest")
+    log(json.dumps({"record": "check", "checked_calls": picks,
+                    "check_s": check_s, "no_limit": no_limit,
+                    "compared": compared, "ingested_rows": ingested,
+                    "reused": sum(len(slots_of(op, 0)) for op in ops
+                                  if op[0] == "reuse"),
+                    "capacity": int(ri.codes.shape[1])}))
 
     # what the user sees, and the record of the estimates' quality
-    ests = torch.cat([o[0] for o in win.outputs])
+    ests = torch.cat([c.answers[0] for c in win.calls])
     attempted = ests.numel()
     failed = int((~torch.isfinite(ests)).sum())
-    all_pairs = torch.cat([traffic.pairs(i).cpu() for i in range(n_calls)])
-    truth = cards.cpu().reshape(-1)[all_pairs]
-    qe = sorted(stats.q_error(e, t) for e, t in zip(ests.tolist(),
-                                                    truth.tolist()))
-    log(json.dumps({"record": "q_error", "pairs": len(qe),
-                    "mean": sum(qe) / len(qe),
-                    "median": stats.percentile(qe, 50),
-                    "p95": stats.percentile(qe, 95),
-                    "checked_calls": picks, "check_s": check_s}))
+    if not ingested:
+        # the pool's exact counts hold for the corpus as it was built
+        all_pairs = torch.cat([answer_pairs(c) for c in win.calls])
+        truth = su.cards.cpu().reshape(-1)[all_pairs]
+        qe = sorted(stats.q_error(e, t) for e, t in zip(ests.tolist(),
+                                                        truth.tolist()))
+        log(json.dumps({"record": "q_error", "pairs": len(qe),
+                        "mean": sum(qe) / len(qe),
+                        "median": stats.percentile(qe, 50),
+                        "p95": stats.percentile(qe, 95),
+                        "checked_calls": picks, "check_s": check_s}))
 
     batch = int(tr["batch"])
     device_info = {"platform": "gpu" if cuda else dev.type,
@@ -443,8 +628,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
     else:
         s = trace.summarize(trace.collect(win.profile))
         log(json.dumps({"record": "slab", **tally}))
-        ctx = MetricCtx(summary=s, build_s=build_s, config=cfg, batch=batch,
-                        live_buckets=int(ri.n_buckets.sum()), slab=tally)
+        ctx = MetricCtx(summary=s, build_s=su.build_s, config=cfg,
+                        batch=batch, live_buckets=int(ri.n_buckets.sum()),
+                        slab=tally, counters=win.counters)
         metrics = {}
         for m, reader in cell.per_layer:
             v = reader.read(ctx)
@@ -459,7 +645,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         if cuda:
             log(json.dumps({"record": "card", "smi": smi_line()}))
     result["device"] = device_info
-    result["compared"] = {k: {"value": compared[k], "limit": limits[k]}
+    result["compared"] = {k: {"value": compared[k], "limit": limits.get(k)}
                           for k in compared}
     return result
 
@@ -468,13 +654,17 @@ class MetricCtx(NamedTuple):
     """What a per-layer metric reader reads (``read(ctx)``): the traced
     calls' summary (None when the profiler saw none), the build's seconds,
     the configuration file, the pairs a call, the live bucket rows of all
-    tables, and the reference's :data:`SLAB_TALLY` of the traced calls."""
+    tables, the reference's :data:`SLAB_TALLY` of the traced calls, and
+    what :func:`counters_now` moved by over the traced calls (None where
+    the program keeps no tally, or it did not move by exactly their
+    estimates)."""
     summary: object
     build_s: float
     config: dict
     batch: int
     live_buckets: int
     slab: dict
+    counters: dict | None = None
 
 
 def main(argv=None, root: Path | None = None) -> int:

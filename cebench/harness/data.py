@@ -32,12 +32,10 @@ def generator(seed: int, tag: str, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(sub_seed(seed, tag))
 
 
-def make_corpus(g: torch.Generator, n: int, dim: int, n_clusters: int,
-                intrinsic_dim: int, noise: float, scale_sigma: float
-                ) -> torch.Tensor:
-    """``(x (n, dim) float32, cluster (n,) int64)`` on ``g``'s device:
-    clusters on a random ``intrinsic_dim``-dimensional subspace, plus
-    isotropic noise."""
+def surrogate(g: torch.Generator, dim: int, n_clusters: int,
+              intrinsic_dim: int, scale_sigma: float):
+    """``(basis, centers, scales)`` of the clustered surrogate: the first
+    draws of ``g``, before any point is drawn."""
     dev = g.device
     basis = torch.randn((intrinsic_dim, dim), generator=g, device=dev) \
         / math.sqrt(intrinsic_dim)
@@ -49,11 +47,52 @@ def make_corpus(g: torch.Generator, n: int, dim: int, n_clusters: int,
              + 0.5) / n_clusters
     scales = torch.exp(torch.special.ndtri(quant) * scale_sigma).float()
     scales = scales[torch.randperm(n_clusters, generator=g, device=dev)]
+    return basis, centers, scales
+
+
+def _points(g: torch.Generator, n: int, basis, centers, scales,
+            noise: float) -> torch.Tensor:
+    """``(x (n, dim), cluster (n,))``: ``n`` points dealt evenly to the
+    clusters in a random order, each its centre plus its cluster's spread
+    on the subspace, plus isotropic noise."""
+    dev = g.device
+    n_clusters, intrinsic_dim = centers.shape
     assign = torch.randperm(n, generator=g, device=dev) % n_clusters
     z = centers[assign] + torch.randn((n, intrinsic_dim), generator=g,
                                       device=dev) * scales[assign, None]
-    x = z @ basis + torch.randn((n, dim), generator=g, device=dev) * noise
+    x = z @ basis + torch.randn((n, basis.shape[1]), generator=g,
+                                device=dev) * noise
     return x.float().contiguous(), assign
+
+
+def make_corpus(g: torch.Generator, n: int, dim: int, n_clusters: int,
+                intrinsic_dim: int, noise: float, scale_sigma: float
+                ) -> torch.Tensor:
+    """``(x (n, dim) float32, cluster (n,) int64)`` on ``g``'s device:
+    clusters on a random ``intrinsic_dim``-dimensional subspace, plus
+    isotropic noise."""
+    return _points(g, n, *surrogate(g, dim, n_clusters, intrinsic_dim,
+                                    scale_sigma), noise)
+
+
+HELDOUT_BLOCK = 1024          # rows of the held-out stream drawn at once
+
+
+def heldout(cfg: dict, seed: int, first: int, n: int, device) -> torch.Tensor:
+    """Rows ``[first, first + n)`` (float32) of the run's held-out stream:
+    points of the corpus's surrogate (its clusters, drawn again from the
+    corpus's sub-seed) that the corpus does not hold. The stream is drawn
+    in blocks of :data:`HELDOUT_BLOCK` rows, each from a sub-seed of its
+    own, so a row is the same however the range is cut."""
+    c = cfg["corpus"]
+    shape = surrogate(generator(seed, "corpus", device), int(cfg["d"]),
+                      c["n_clusters"], c["intrinsic_dim"], c["scale_sigma"])
+    lo, hi = first // HELDOUT_BLOCK, -(-(first + n) // HELDOUT_BLOCK)
+    rows = torch.cat([_points(generator(seed, f"heldout{b}", device),
+                              HELDOUT_BLOCK, *shape, c["noise"])[0]
+                      for b in range(lo, max(hi, lo + 1))])
+    start = first - lo * HELDOUT_BLOCK
+    return rows[start:start + n].contiguous()
 
 
 def tau_targets(n: int, n_taus: int, max_card: int) -> torch.Tensor:

@@ -2,12 +2,17 @@
 
 The harness wraps each batch of the traced window in a ``record_function``
 span (``BATCH``), and calls into a layer in a span of its own (``SPAN_*``).
-:func:`collect` flattens the profiler's events once; :func:`summarize`
-reduces them to counts and times over the traced batches, which the
+While a profiler runs, the program puts each phase of its work in a span
+of its own too, named ``<module>.<phase>`` (``estimator.estimate_batch``,
+``prober.slab_loop``, ...: :data:`PROGRAM_SPAN`). :func:`collect` flattens
+the profiler's events once; :func:`summarize` reduces them to counts and
+times over the traced batches, the program's spans among them, which the
 per-layer metric readers (``cebench/metrics/``) take their numbers from.
 """
 from __future__ import annotations
 
+import re
+from bisect import bisect_left
 from collections import defaultdict
 from typing import NamedTuple
 
@@ -25,6 +30,14 @@ SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
               "cudaEventSynchronize", "cuStreamSynchronize",
               "cuCtxSynchronize", "cudaMemcpy", "cuMemcpyDtoH")
 NO_OP = "host, outside any operator"
+# a span of the program: dotted lower-case words, as ``utils/spans.span``
+# names them (the profiler's own events read ``aten::...``, ``cuda...``)
+PROGRAM_SPAN = re.compile(r"[a-z][a-z0-9_]*(\.[a-z0-9_]+)+")
+
+
+def is_program_span(name: str) -> bool:
+    return not name.startswith("cebench.") and bool(
+        PROGRAM_SPAN.fullmatch(name))
 
 
 class Ev(NamedTuple):
@@ -46,6 +59,8 @@ class Summary(NamedTuple):
     kernel_s: dict          # device operation name -> seconds
     device_ops: list        # [[name, seconds]], the 10 longest
     idle_gaps: list         # [[what the host did, seconds]], the 10 longest
+    program_spans: dict     # the program's span name -> figures
+                            # (:func:`program_spans`)
 
 
 def _device_us(e) -> float:
@@ -55,13 +70,14 @@ def _device_us(e) -> float:
 
 
 def collect(prof) -> list[Ev]:
-    """The profiler's events as :class:`Ev` records."""
+    """The profiler's events as :class:`Ev` records, with the device time
+    under each span of the harness's and of the program's."""
     from torch.autograd import DeviceType
     out = []
     for e in prof.events():
         dev = e.device_type != DeviceType.CPU
-        tree = _device_us(e) if (not dev and e.name.startswith("cebench.")) \
-            else 0.0
+        spanned = e.name.startswith("cebench.") or is_program_span(e.name)
+        tree = _device_us(e) if (not dev and spanned) else 0.0
         out.append(Ev(e.name, dev, float(e.time_range.start),
                       float(e.time_range.end), int(e.thread), tree))
     return out
@@ -99,6 +115,18 @@ def _innermost(host: list[Ev], points: list[float]) -> list[str]:
     return names
 
 
+def _gaps(busy, t0: float, t1: float) -> list:
+    """The intervals of [t0, t1) outside the sorted disjoint ``busy``."""
+    gaps, prev = [], t0
+    for s, e in busy:
+        if s > prev:
+            gaps.append((prev, s))
+        prev = max(prev, e)
+    if t1 > prev:
+        gaps.append((prev, t1))
+    return gaps
+
+
 def summarize(evs: list[Ev], top: int = 10) -> Summary | None:
     """Counts and times over the traced batches; None without a batch."""
     batches = [e for e in evs if not e.device and e.name == BATCH]
@@ -123,13 +151,7 @@ def summarize(evs: list[Ev], top: int = 10) -> Summary | None:
     busy = _union((max(e.start, t0), min(e.end, t1)) for e in device
                   if e.end > t0 and e.start < t1)
     busy_s = sum(e - s for s, e in busy) / 1e6
-    gaps, prev = [], t0
-    for s, e in busy:
-        if s > prev:
-            gaps.append((prev, s))
-        prev = max(prev, e)
-    if t1 > prev:
-        gaps.append((prev, t1))
+    gaps = _gaps(busy, t0, t1)
     inner = [e for e in host if e.tid == main and e.name != BATCH]
     names = _innermost(inner, [(s + e) / 2 for s, e in gaps])
     idle: dict = defaultdict(float)
@@ -137,7 +159,70 @@ def summarize(evs: list[Ev], top: int = 10) -> Summary | None:
         idle[nm] += (e - s) / 1e6
     return Summary(len(batches), (t1 - t0) / 1e6, busy_s, launches, syncs,
                    dict(spans), dict(kernel_s), _top(kernel_s, top),
-                   _top(idle, top))
+                   _top(idle, top), program_spans(host, gaps))
+
+
+def _overlap(intervals, gaps) -> float:
+    """Length of the overlap of two lists of disjoint sorted intervals."""
+    total, j = 0.0, 0
+    for s, e in intervals:
+        while j < len(gaps) and gaps[j][1] <= s:
+            j += 1
+        k = j
+        while k < len(gaps) and gaps[k][0] < e:
+            total += min(e, gaps[k][1]) - max(s, gaps[k][0])
+            k += 1
+    return total
+
+
+def _count_in(starts: list[float], intervals) -> int:
+    """How many of the sorted ``starts`` fall in the intervals [s, e)."""
+    return sum(bisect_left(starts, e) - bisect_left(starts, s)
+               for s, e in intervals)
+
+
+def program_spans(host: list[Ev], gaps: list) -> dict:
+    """Span name → ``{calls, host_s, device_s, launches, syncs, idle_s}``
+    for the program's spans among the traced calls' ``host`` events: host
+    seconds inside the span, device seconds of the work launched inside
+    it, the launch and sync runtime calls (:data:`LAUNCH_PREFIXES`,
+    :data:`SYNC_CALLS`) of its thread inside it, and the device's idle
+    seconds (``gaps``, µs intervals) inside it. Every figure includes the
+    spans nested in it. Empty where the program made no span."""
+    spans: dict = defaultdict(list)
+    for e in host:
+        if is_program_span(e.name):
+            spans[e.name].append(e)
+    if not spans:
+        return {}
+    launches: dict = defaultdict(list)
+    syncs: dict = defaultdict(list)
+    for e in host:
+        if e.name.startswith(LAUNCH_PREFIXES):
+            launches[e.tid].append(e.start)
+        elif e.name in SYNC_CALLS:
+            syncs[e.tid].append(e.start)
+    for d in (launches, syncs):
+        for v in d.values():
+            v.sort()
+    out = {}
+    for name, es in sorted(spans.items()):
+        by_tid: dict = defaultdict(list)
+        for e in es:
+            by_tid[e.tid].append((e.start, e.end))
+        ivs = [_union(v) for v in by_tid.values()]
+        merged = _union(iv for v in ivs for iv in v)
+        out[name] = {
+            "calls": len(es),
+            "host_s": sum(e.end - e.start for e in es) / 1e6,
+            "device_s": sum(e.tree_us for e in es) / 1e6,
+            "launches": sum(_count_in(launches[t], iv)
+                            for t, iv in zip(by_tid, ivs)),
+            "syncs": sum(_count_in(syncs[t], iv)
+                         for t, iv in zip(by_tid, ivs)),
+            "idle_s": _overlap(merged, gaps) / 1e6,
+        }
+    return out
 
 
 def _top(d: dict, top: int, width: int = 120) -> list:

@@ -1,5 +1,5 @@
-"""Plain reference of the Dynamic Prober (paper §4, Alg. 1-3, 7; with PQ,
-Alg. 4-5), written from the paper and the configuration, in plain torch.
+"""Plain reference of the Dynamic Prober (paper §4-5, Alg. 1-3, 7; with PQ,
+Alg. 4-5, 8), written from the paper and the configuration, in plain torch.
 
 It imports nothing of the program and takes nothing the program made. Given
 the corpus, the seed of the build's generator, the batch's queries, radii
@@ -12,7 +12,9 @@ and PRP round keys, it works out:
 * per batch: the queries' codes and Hamming distances to every live bucket,
   the central count (Alg. 3), and the progressive sampling of rings 1..K
   under the Chernoff stopping rule (Alg. 1/2), with the same PRP draws;
-  with PQ, the LUTs and the ADC qualification of the far rings.
+  with PQ, the LUTs and the ADC qualification of the far rings;
+* per ingest (:func:`update`): Alg. 7 over the live rows, the capacity
+  doubled where they no longer fit; with PQ, Alg. 8.
 
 Float32 operations follow the program's order (``arith``), so that equal
 inputs give equal outputs bit for bit, and the comparison can be exact.
@@ -34,6 +36,7 @@ KMEANS_CHUNK = 1 << 25          # elements of one (rows, M, Kc) distance block
 class RefPQ(NamedTuple):
     centroids: torch.Tensor     # (M, Kc, ds) float32
     codes: torch.Tensor         # (n, M) uint8
+    counts: torch.Tensor        # (M, Kc) float32 points a centroid, Alg. 8
 
 
 class RefIndex(NamedTuple):
@@ -48,9 +51,18 @@ class RefIndex(NamedTuple):
     bucket_sizes: torch.Tensor  # (L, C) int32
     n_buckets: torch.Tensor     # (L,) int32
     pq: Optional[RefPQ] = None
+    x: Optional[torch.Tensor] = None   # (C, d) the corpus, rows >= n zero
+    n_valid: int = 0                   # live rows
 
 
 # ---- the build ------------------------------------------------------------
+
+def _codes(raw: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
+           nl: int) -> torch.Tensor:
+    """(R, L·K) projections a·x → (L, R, K) codes floor((a·x + b·w) / w)."""
+    c = torch.floor((raw + b * w) / w).to(torch.int32)
+    return c.reshape(raw.shape[0], nl, -1).transpose(0, 1)
+
 
 def _csr(codes_t: torch.Tensor, n: int):
     """One table's sorted-CSR layout of (C, K) codes whose rows >= n are
@@ -116,7 +128,9 @@ def kmeans(xs: torch.Tensor, init_rows: torch.Tensor, iters: int) -> RefPQ:
         sums = _segment_sums(flat, seg, m * kc).reshape(m, kc, ds)
         cnts = _segment_sums(ones, seg, m * kc).reshape(m, kc, 1)
         cent = torch.where(cnts > 0, sums / cnts.clamp_min(1.0), cent)
-    return RefPQ(cent, kmeans_assign(cent, xs).to(torch.uint8))
+    codes = kmeans_assign(cent, xs)
+    cnt = _segment_sums(ones, (codes + offs).reshape(-1), m * kc)
+    return RefPQ(cent, codes.to(torch.uint8), cnt.reshape(m, kc))
 
 
 def build(x_pad: torch.Tensor, n: int, cfg: dict,
@@ -128,7 +142,7 @@ def build(x_pad: torch.Tensor, n: int, cfg: dict,
                           or cfg["pq_banded"]):
         raise NotImplementedError("this reference qualifies by float LUTs "
                                   "and byte codes only")
-    c, d = x_pad.shape
+    d = x_pad.shape[1]
     nl, k = cfg["n_tables"], cfg["n_funcs"]
     g = generator
     a = torch.randn((d, nl * k), generator=g, device=g.device).to(x_pad.device)
@@ -137,10 +151,8 @@ def build(x_pad: torch.Tensor, n: int, cfg: dict,
     live = raw[:n]
     w = torch.clamp_min((live.amax(0) - live.amin(0))
                         / float(cfg["n_regions"]), 1e-6)
-    codes = torch.floor((raw + b * w) / w).to(torch.int32)
-    codes = codes.reshape(c, nl, k).transpose(0, 1).contiguous()
+    codes = _codes(raw, b, w, nl).contiguous()
     codes[:, n:] = SENTINEL
-    parts = [_csr(codes[t], n) for t in range(nl)]
     pq = None
     if cfg["use_pq"]:
         m, kc = cfg["pq_m"], cfg["pq_kc"]
@@ -150,15 +162,91 @@ def build(x_pad: torch.Tensor, n: int, cfg: dict,
             init = torch.randint(0, n, (kc,), generator=g, device=g.device)
         xs = x_pad[:n].reshape(n, m, d // m)
         pq = kmeans(xs, init.to(x_pad.device), cfg["pq_iters"])
-    return RefIndex(a=a, b=b, w=w, raw=raw, codes=codes,
-                    order=torch.stack([p[0] for p in parts]),
-                    bucket_codes=torch.stack([p[1] for p in parts]),
-                    bucket_starts=torch.stack([p[2] for p in parts]),
-                    bucket_sizes=torch.stack([p[3] for p in parts]),
-                    n_buckets=torch.tensor([p[4] for p in parts],
-                                           dtype=torch.int32,
-                                           device=x_pad.device),
-                    pq=pq)
+    return relayout(RefIndex(a=a, b=b, w=w, raw=raw, codes=codes,
+                             order=None, bucket_codes=None,
+                             bucket_starts=None, bucket_sizes=None,
+                             n_buckets=None, pq=pq, x=x_pad, n_valid=n))
+
+
+def relayout(ri: RefIndex) -> RefIndex:
+    """Every table's sorted-CSR layout from the codes of the live rows."""
+    parts = [_csr(ri.codes[t], ri.n_valid) for t in range(ri.codes.shape[0])]
+    return ri._replace(order=torch.stack([p[0] for p in parts]),
+                       bucket_codes=torch.stack([p[1] for p in parts]),
+                       bucket_starts=torch.stack([p[2] for p in parts]),
+                       bucket_sizes=torch.stack([p[3] for p in parts]),
+                       n_buckets=torch.tensor([p[4] for p in parts],
+                                              dtype=torch.int32,
+                                              device=ri.codes.device))
+
+
+def _pow2_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` padded with zero rows to a power of two: an ingest's rows are
+    projected and encoded as one such block, as the program does, so that
+    the matrix products round alike."""
+    p = 1
+    while p < x.shape[0]:
+        p *= 2
+    return torch.nn.functional.pad(x, (0, 0, 0, p - x.shape[0]))
+
+
+
+
+def _ingest_pq(pq: RefPQ, blk: torch.Tensor, n_new: int) -> RefPQ:
+    """Alg. 8: the new rows (the first ``n_new`` of the zero-padded block
+    ``blk``) take the nearest of the existing centroids, and each
+    centroid moves to the running mean of its points."""
+    m, kc, ds = pq.centroids.shape
+    xs = blk.reshape(blk.shape[0], m, ds)
+    new = kmeans_assign(pq.centroids, xs)
+    live = (torch.arange(blk.shape[0], device=blk.device) < n_new).float()
+    wf = live.repeat_interleave(m)
+    seg = (new + (torch.arange(m, device=blk.device) * kc)[None]).reshape(-1)
+    sums = _segment_sums(xs.reshape(-1, ds) * wf[:, None], seg,
+                         m * kc).reshape(m, kc, ds)
+    tot = pq.counts + _segment_sums(wf, seg, m * kc).reshape(m, kc)
+    cent = torch.where(tot[..., None] > 0,
+                       (pq.centroids * pq.counts[..., None] + sums)
+                       / tot[..., None].clamp_min(1.0), pq.centroids)
+    return RefPQ(cent, torch.cat([pq.codes, new[:n_new].to(torch.uint8)]),
+                 tot)
+
+
+def update(ri: RefIndex, x_new: torch.Tensor, cfg: dict,
+           layout: bool = True) -> RefIndex:
+    """Paper §5, Alg. 7: the rows ``x_new`` join the live ones (the
+    capacity doubles first where they do not fit); W is derived again from
+    the range of every live row's projections; if it moved, every live row
+    is hashed again, else only the new ones; the tables are laid out again
+    (``layout=False`` leaves that to a later :func:`relayout`, and the
+    layout fields are then stale). With PQ, Alg. 8. The corpus and the
+    projections are written in place where the rows fit."""
+    n, k = ri.n_valid, x_new.shape[0]
+    x, raw, codes = ri.x, ri.raw, ri.codes
+    cap = x.shape[0]
+    if n + k > cap:
+        while cap < n + k:
+            cap *= 2
+        grow = cap - x.shape[0]
+        x = torch.nn.functional.pad(x, (0, 0, 0, grow))
+        raw = torch.nn.functional.pad(raw, (0, 0, 0, grow))
+        codes = torch.nn.functional.pad(codes, (0, 0, 0, grow),
+                                        value=SENTINEL)
+    blk = _pow2_rows(x_new.to(x.device, torch.float32))
+    x[n:n + k] = blk[:k]
+    raw[n:n + k] = (blk @ ri.a)[:k]
+    live = raw[:n + k]
+    w = torch.clamp_min((live.amax(0) - live.amin(0))
+                        / float(cfg["n_regions"]), 1e-6)
+    nl = codes.shape[0]
+    if torch.equal(w, ri.w):
+        codes[:, n:n + k] = _codes(raw[n:n + k], ri.b, w, nl)
+    else:
+        codes[:, :n + k] = _codes(live, ri.b, w, nl)
+    out = ri._replace(w=w, raw=raw, codes=codes, x=x, n_valid=n + k,
+                      pq=None if ri.pq is None else
+                      _ingest_pq(ri.pq, blk, k))
+    return relayout(out) if layout else out
 
 
 # ---- one batch ------------------------------------------------------------

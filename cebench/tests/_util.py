@@ -1,5 +1,6 @@
 """Shared helpers of the cebench CPU tests: a throwaway checkout holding
-the benchmark's files plus the tiny test cells (tests/data)."""
+the benchmark's files plus the tiny test cells (tests/data), and a served
+cell that ingests, added to it by new files only."""
 from __future__ import annotations
 
 import json
@@ -17,6 +18,9 @@ for p in (str(ROOT), str(ROOT / "src")):
 
 DATA = Path(__file__).resolve().parent / "data"
 TINY = ("tiny-exact.tiny-b16", "tiny-pq.tiny-b16")
+# the coalescer with its cache over an index that ingests past a capacity
+# doubling (tests/data/tiny_serve.py, tiny-serve.json, tiny-zipf.json)
+SERVED = "tiny-serve.tiny-zipf"
 
 
 def tiny_root(tmp: Path) -> Path:
@@ -40,6 +44,40 @@ def tiny_root(tmp: Path) -> Path:
         m["workloads"].extend(stands_for[w] for w in list(m["workloads"]))
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
     return tmp
+
+
+def add_cell(root: Path, config: dict, traffic: dict, driver: str | None,
+             name: str | None = None) -> list[Path]:
+    """Add a cell to the checkout ``root`` by new files (its configuration,
+    its traffic and, where given, the test driver of that name from
+    tests/data) and a new ``BENCHMARK.json`` entry; returns the files."""
+    bench = root / "cebench"
+    new = [bench / "configs" / f"{config['name']}.json",
+           bench / "traffic" / f"{traffic['name']}.json"]
+    new[0].write_text(json.dumps(config))
+    new[1].write_text(json.dumps({k: v for k, v in traffic.items()
+                                  if k != "name"}))
+    if driver is not None:
+        new.append(bench / "drivers" / f"{driver}.py")
+        if not new[-1].exists():
+            shutil.copy(DATA / f"{driver}.py", new[-1])
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": name or f"{config['name']}."
+                              f"{traffic['name']}", "config": config["name"],
+                              "traffic": traffic["name"], "chips": 1,
+                              "why": "a CPU test size"})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=1))
+    return new
+
+
+def served(**traffic) -> tuple[dict, dict]:
+    """The served cell's configuration and traffic, the traffic's
+    parameters updated from ``traffic``."""
+    config = json.loads((DATA / "tiny-serve.json").read_text())
+    mix = {"name": "tiny-zipf",
+           **json.loads((DATA / "tiny-zipf.json").read_text())}
+    mix.update(traffic)
+    return config, mix
 
 
 @pytest.fixture(scope="module", autouse=False)

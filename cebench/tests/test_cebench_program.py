@@ -1,7 +1,8 @@
 """The program's own spans and counters as the harness reads them
-(``harness/program.py``, the two counter metrics, ``tools/spans.py``):
-inclusive attribution on synthetic event lists, a summary that the
-program's spans leave as it was, and traced CPU runs of the tiny cells."""
+(``trace.Summary.program_spans``, ``harness/program.py``, the counters of
+``MetricCtx``, the two counter metrics, ``tools/spans.py``): inclusive
+attribution on synthetic event lists, a summary that the program's spans
+leave as it was, and traced CPU runs of the tiny cells."""
 from __future__ import annotations
 
 import importlib.util
@@ -52,7 +53,8 @@ PROGRAM = [_host("estimator.estimate_batch", 5, 95, tree=24.0),
 
 
 def test_program_spans_count_inclusively_on_their_thread():
-    sp = program.program_spans(HARNESS + PROGRAM)
+    s = trace.summarize(HARNESS + PROGRAM)
+    sp = s.program_spans
     assert set(sp) == {e.name for e in PROGRAM}
     step, block, loop = (sp[f"prober.{n}"] for n in ("slab_step",
                                                      "slab_block",
@@ -75,9 +77,7 @@ def test_program_spans_count_inclusively_on_their_thread():
     assert step["host_s"] == pytest.approx(67e-6)
     assert step["device_s"] == pytest.approx(13e-6)
     assert sp["prober.ring_cumsums"]["device_s"] == pytest.approx(12e-6)
-    gaps = program.idle_gaps(HARNESS + PROGRAM)
-    s = trace.summarize(HARNESS + PROGRAM)
-    assert sum(e - b for b, e in gaps) / 1e6 == pytest.approx(
+    assert sum(v for _, v in s.idle_gaps) == pytest.approx(
         s.window_s - s.busy_s)
 
 
@@ -87,7 +87,7 @@ def test_program_spans_leave_the_summary_as_it_was():
     for field in ("batches", "window_s", "busy_s", "launches", "syncs",
                   "span_device_s", "kernel_s", "device_ops"):
         assert getattr(after, field) == getattr(before, field), field
-    assert program.program_spans(HARNESS) == {}
+    assert before.program_spans == {}
     # a gap is named by what the host did at its middle: the gaps inside
     # the slab steps (30-46, 50-63) were the host outside any operator,
     # and are the steps' now; what is left of it lies outside the estimate
@@ -98,13 +98,29 @@ def test_program_spans_leave_the_summary_as_it_was():
     assert now["prober.slab_step"] == pytest.approx((16 + 13) * 1e-6)
 
 
+class _Driver:
+    """A driver with no counters of its own."""
+
+    def counters(self):
+        return {}
+
+
+# one traced call of one estimate
+ONE_CALL = [core.Call((None, None, None), [("estimate", None, None, None)])]
+
+
 def test_counter_readers_read_nothing_from_a_program_without_a_tally(
         monkeypatch):
     from repro_torch.core import prober
     monkeypatch.delattr(prober, "read_tally")
     assert program.tally() is None
+    now = core.counters_now(_Driver())
+    assert "calls" not in now
+    counters = core.traced_counters(program.diff(now, now), ONE_CALL)
+    assert counters is None
     ctx = core.MetricCtx(summary=trace.summarize(HARNESS), build_s=0.0,
-                         config={}, batch=16, live_buckets=0, slab={})
+                         config={}, batch=16, live_buckets=0, slab={},
+                         counters=counters)
     for name in NEW:
         reader = core.load_module(ROOT / "cebench" / "metrics"
                                   / f"{name}.py")
@@ -115,17 +131,21 @@ def test_counter_readers_read_nothing_from_a_program_without_a_tally(
 @pytest.mark.parametrize("name", NEW)
 def test_counter_readers_read_only_a_tally_of_the_traced_calls(
         monkeypatch, name, extra):
-    """A reader subtracts the tally it saw when loaded, and reads nothing
-    unless the difference sums exactly the traced calls (one here)."""
+    """The harness keeps what the counters moved by over the traced calls
+    only where the tally sums exactly their estimates (one here), and a
+    reader reads nothing otherwise."""
     counts = dict.fromkeys(("exact", "adc", "discarded",
                             "discarded_lane_steps", "kept_lane_steps",
                             "calls"), 0)
     monkeypatch.setattr(program, "tally", lambda: dict(counts))
     reader = core.load_module(ROOT / "cebench" / "metrics" / f"{name}.py")
+    before = core.counters_now(_Driver())
     counts.update(exact=30, adc=10, discarded=5, discarded_lane_steps=2,
                   kept_lane_steps=8, calls=1 + extra)
+    moved = program.diff(before, core.counters_now(_Driver()))
     ctx = core.MetricCtx(summary=trace.summarize(HARNESS), build_s=0.0,
-                         config={}, batch=16, live_buckets=0, slab={})
+                         config={}, batch=16, live_buckets=0, slab={},
+                         counters=core.traced_counters(moved, ONE_CALL))
     want = {"slab.candidates_per_batch": 45.0,
             "prober.discarded_lane_step_share": 20.0}[name]
     assert reader.read(ctx) == (want if extra == 0 else None)

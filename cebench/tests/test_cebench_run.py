@@ -1,6 +1,7 @@
 """Whole runs of the tiny cells on the CPU (the harness's look for a card
-skipped): the result line, discovery by name, a throwaway cell added by
-new files only, and the exit without a card."""
+skipped): the result line, discovery by name, throwaway cells added by
+new files only (one served through the coalescer and its cache while it
+ingests), and the exit without a card."""
 from __future__ import annotations
 
 import hashlib
@@ -9,7 +10,8 @@ import json
 import pytest
 import torch
 
-from cebench.tests._util import ROOT, TINY, one_thread, tiny_root  # noqa: F401
+from cebench.tests._util import (ROOT, SERVED, TINY, add_cell,  # noqa: F401
+                                 one_thread, served, tiny_root)
 from cebench.harness import core, data
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device", "compared"]
@@ -92,11 +94,78 @@ def test_a_new_cell_takes_new_files_and_entries_only(root, tmp_path):
         assert hashlib.sha256(p.read_bytes()).hexdigest() == h, p
 
 
+HIT_SHARE = """def read(ctx):
+    c = ctx.counters
+    if c is None or not c["cache_lookups"]:
+        return None
+    return 100.0 * c["cache_hits"] / c["cache_lookups"]
+"""
+
+
+def test_a_served_cell_that_ingests_takes_new_files_and_entries_only(root):
+    """A driver over the program's coalescer, with its estimate cache,
+    zipf reuse and ingests that cross a capacity doubling, comes in by new
+    files; its records replay on the reference and read correct, with no
+    stale serve; a reader reads the driver's counters."""
+    digest = {p: hashlib.sha256(p.read_bytes()).hexdigest()
+              for p in (root / "cebench").rglob("*") if p.is_file()}
+    spec_text = (root / "BENCHMARK.json").read_text()
+    config, traffic = served()
+    new = add_cell(root, config, traffic, "tiny_serve")
+    reader = root / "cebench" / "metrics" / "tiny.hit_share.py"
+    reader.write_text(HIT_SHARE)
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["per_layer"].append({"name": "tiny.hit_share", "unit": "%",
+                              "better": "higher",
+                              "source": "program_counter", "layer": "cache",
+                              "moves": "queries_per_s",
+                              "workloads": [SERVED]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    lines = []
+    try:
+        r = core.run_cell(root, SERVED, 2 ** 31 + 17, 0.3, True,
+                          device="cpu",
+                          log=lambda *a, **k: lines.append(a[0]))
+    finally:
+        for p in new + [reader]:
+            p.unlink()
+        (root / "BENCHMARK.json").write_text(spec_text)
+    for p, h in digest.items():
+        assert hashlib.sha256(p.read_bytes()).hexdigest() == h, p
+    assert r["correct"] is True and r["failed"] == 0
+    assert {k: v["value"] for k, v in r["compared"].items()} == \
+        {"build_diff": 0, "stats_diff": 0, "est_gap": 0.0,
+         "stale_serves": 0}
+    rec = next(json.loads(x) for x in lines
+               if x.startswith('{"record": "check"'))
+    assert rec["capacity"] == 2 * config["capacity"]
+    assert rec["ingested_rows"] > config["capacity"] - config["n"]
+    assert rec["reused"] > 0
+    assert 0 <= r["metrics"]["tiny.hit_share"]["value"] <= 100
+
+
 def test_a_missing_file_is_a_cell_error(root, tmp_path):
     with pytest.raises(core.CellError):
         core.load_cell(root, "no-such.cell")
     with pytest.raises(core.CellError):
         core.load_cell(tmp_path, TINY[0])
+
+
+def test_a_traffic_file_names_its_driver(root):
+    traffic = root / "cebench" / "traffic" / "tiny-b16.json"
+    text = traffic.read_text()
+    try:
+        body = json.loads(text)
+        del body["driver"]
+        traffic.write_text(json.dumps(body))
+        with pytest.raises(core.CellError, match="driver"):
+            core.load_cell(root, TINY[0])
+        traffic.write_text(json.dumps(dict(body, driver="no-such")))
+        with pytest.raises(core.CellError):
+            core.load_cell(root, TINY[0])
+    finally:
+        traffic.write_text(text)
+    assert core.load_cell(root, TINY[0]).driver.open
 
 
 def test_without_a_card_the_command_exits_non_zero_and_prints_nothing(
@@ -135,3 +204,17 @@ def test_the_reference_rederives_the_ports_build_and_answers(root, cell):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got[2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_the_served_cell_replays_correct_on_the_card(tmp_path):
+    """The served cell's records replay bit for bit on the card too: the
+    program's padded miss batches against the reference's lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    root = tiny_root(tmp_path)
+    config, traffic = served()
+    add_cell(root, config, traffic, "tiny_serve")
+    r = core.run_cell(root, SERVED, 2 ** 31 + 41, 1.0, False, log=_quiet)
+    assert r["correct"] is True
+    assert r["compared"]["stale_serves"]["value"] == 0

@@ -75,4 +75,9 @@ def test_every_cell_loads_by_name():
             {"queries_per_s", "batch_p90_ms", "peak_mem_gib", "setup_s"}
         assert all(hasattr(r, "read") for _, r in cell.per_layer)
         assert hasattr(cell.reference, "estimate")
-        assert hasattr(cell.generator, "make")
+        assert hasattr(cell.reference, "update")
+        assert hasattr(cell.driver, "open")
+        gen = cell.traffic.get("generator")
+        if gen is not None:
+            assert hasattr(core.load_module(
+                ROOT / "cebench" / "generators" / f"{gen}.py"), "make")

@@ -78,3 +78,66 @@ def test_every_seed_draws_the_same_cluster_sizes_and_pool_shares():
         assert len(set(rows.tolist())) == 20
         per = torch.bincount(cl[rows], minlength=8)
         assert sorted(per.tolist()) == [2, 2, 2, 2, 3, 3, 3, 3]
+
+
+def _corpus_as_drawn_before(g, n, dim, n_clusters, intrinsic_dim, noise,
+                            scale_sigma):
+    """The corpus generator as it was before the held-out stream shared
+    its surrogate: the draws, in their order, that the cells' corpora were
+    made by."""
+    import math
+    dev = g.device
+    basis = torch.randn((intrinsic_dim, dim), generator=g, device=dev) \
+        / math.sqrt(intrinsic_dim)
+    centers = torch.randn((n_clusters, intrinsic_dim), generator=g,
+                          device=dev)
+    centers *= 2.0 * math.sqrt(intrinsic_dim) / centers.norm(dim=1,
+                                                            keepdim=True)
+    quant = (torch.arange(n_clusters, device=dev, dtype=torch.float64)
+             + 0.5) / n_clusters
+    scales = torch.exp(torch.special.ndtri(quant) * scale_sigma).float()
+    scales = scales[torch.randperm(n_clusters, generator=g, device=dev)]
+    assign = torch.randperm(n, generator=g, device=dev) % n_clusters
+    z = centers[assign] + torch.randn((n, intrinsic_dim), generator=g,
+                                      device=dev) * scales[assign, None]
+    x = z @ basis + torch.randn((n, dim), generator=g, device=dev) * noise
+    return x.float().contiguous(), assign
+
+
+def test_the_corpus_is_drawn_as_before():
+    for seed in (4, 2 ** 31 + 99):
+        args = (1500, 16, 8, 12, 0.05, 0.8)
+        got = data.make_corpus(data.generator(seed, "corpus", "cpu"), *args)
+        want = _corpus_as_drawn_before(
+            data.generator(seed, "corpus", "cpu"), *args)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+CFG = {"d": 8, "corpus": {"n_clusters": 4, "intrinsic_dim": 3,
+                          "noise": 0.05, "scale_sigma": 0.8}}
+
+
+def test_the_heldout_stream_is_the_same_however_it_is_cut():
+    big = 2 ** 31 + 5
+    whole = data.heldout(CFG, big, 0, 2500, "cpu")
+    cut = torch.cat([data.heldout(CFG, big, 0, 700, "cpu"),
+                     data.heldout(CFG, big, 700, 1324, "cpu"),
+                     data.heldout(CFG, big, 2024, 476, "cpu")])
+    assert whole.shape == (2500, 8) and torch.equal(whole, cut)
+    assert torch.equal(data.heldout(CFG, big, 1000, 30, "cpu"),
+                       whole[1000:1030])
+    assert not torch.equal(data.heldout(CFG, big + 1, 0, 30, "cpu"),
+                           whole[:30])
+
+
+def test_the_heldout_stream_is_new_points_of_the_corpus_clusters():
+    """Every held-out point lies as near a corpus cluster's centre as the
+    corpus's own points do, and none is a corpus point."""
+    x, cl = data.make_corpus(data.generator(6, "corpus", "cpu"), 2000, 8, 4,
+                             3, 0.05, 0.8)
+    h = data.heldout(CFG, 6, 0, 1000, "cpu")
+    means = torch.stack([x[cl == c].mean(0) for c in range(4)])
+    near_h = torch.cdist(h, means).min(1).values
+    near_x = torch.cdist(x, means).min(1).values
+    assert float(near_h.quantile(0.9)) < 1.5 * float(near_x.quantile(0.9))
+    assert float(torch.cdist(h, x).min()) > 0

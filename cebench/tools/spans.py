@@ -4,23 +4,24 @@ program's own spans:
     python3 cebench/tools/spans.py --workload <cell> --seed <n>
         [--calls 6] [--rounds 2] [--out <file>.json] [--device cpu]
 
-One process: the cell's set-up as a run makes it (inputs from the seed,
-the build, the warm calls), then ``--rounds`` rounds, each of ``--calls``
-traced calls with the program's spans and tally on, then as many with
-them off (the program's spans made no-ops and its tally skipped; the
-harness's own spans stay), in turns. Prints one JSON object (and writes
-it to ``--out``): for each round and side the traced calls' seconds, the
-profiler's summary (``trace.summarize``), the program's spans
-(``program.program_spans``), the counters' differences and the split of
-the launches, syncs and idle seconds by span; and what a span costs with
-no profiler running, gated and not. Used to find where the host slab
-loop's time goes; the benchmark's own runs do not use it.
+One process: the cell's set-up as a run makes it (``core.set_up``:
+inputs from the seed, the build, the warm calls), then ``--rounds``
+rounds, each of ``--calls`` traced calls (``core.traced_calls``) with the
+program's spans and tally on, then as many with them off (the program's
+spans made no-ops and its tally skipped; the harness's own spans stay),
+in turns. Prints one JSON object (and writes it to ``--out``): for each
+round and side the traced calls' seconds, the profiler's summary
+(``trace.summarize``), the program's spans (``Summary.program_spans``),
+the counters' differences (the lane-steps of the tally and the launches
+of both slab kernels a call among them) and the split of the launches,
+syncs and idle seconds by span; and what a span costs with no profiler
+running, gated and not. Used to find where a call's time goes; the
+benchmark's own runs do not use it.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib
 import json
 import sys
 import time
@@ -31,7 +32,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import torch  # noqa: E402
 
-from cebench.harness import core, data, program, trace  # noqa: E402
+from cebench.harness import core, trace  # noqa: E402
 
 # (enclosing span, its part): the parts of a traced call that the split
 # gives, outermost last; each part is what the span holds less the part
@@ -39,29 +40,6 @@ from cebench.harness import core, data, program, trace  # noqa: E402
 PARTS = (("prober.slab_step", "in slab steps"),
          ("prober.slab_block", "in slab blocks, outside their steps"),
          ("estimator.estimate_batch", "in the estimate, outside the blocks"))
-
-
-def set_up(root: Path, workload: str, seed: int, dev):
-    """What ``core.run_cell`` makes before its window: ``(cell, state,
-    pool_q, pool_t, traffic, pcfg)``. A copy of that set-up, to be
-    replaced by a call into ``core`` once it offers one."""
-    from repro_torch.core import estimator as E
-    cell = core.load_cell(root, workload)
-    cfg, tr = cell.config, cell.traffic
-    pcfg = core.prober_config(cfg)
-    x, pool_q, pool_t, _ = core.make_inputs(cfg, tr, seed, dev)
-    state = E.build(x, pcfg, generator=data.generator(seed, "build", dev),
-                    capacity=int(cfg["capacity"]), device=dev)
-    del x
-    n_pairs = pool_t.numel()
-    warm = cell.generator.make(tr, n_pairs, pcfg.n_tables, seed, dev,
-                               tag="warm")
-    for i in range(int(tr["warm_batches"])):
-        core._call(E.estimate_batch_stats, state, pool_q, pool_t,
-                   pool_t.shape[1], warm, i, pcfg)
-    traffic = cell.generator.make(tr, n_pairs, pcfg.n_tables, seed, dev)
-    core.sync(dev)
-    return cell, state, pool_q, pool_t, traffic, pcfg
 
 
 @contextlib.contextmanager
@@ -80,39 +58,12 @@ def spans_off():
             setattr(m, a, v)
 
 
-def traced(state, pool_q, pool_t, traffic, pcfg, first: int, calls: int):
-    """``calls`` calls under the profiler, as ``core.run_window`` traces
-    them (each in a ``trace.BATCH`` span, the functions of
-    ``trace.LAYER_SPANS`` in spans of their own); returns ``(events,
-    seconds a call, counter differences)``. A copy of ``run_window``'s
-    traced branch, to be replaced by a call into ``core`` once it takes
-    the program's counters itself."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.core import estimator as E
-    acts = [ProfilerActivity.CPU]
-    if pool_q.device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    patched = []
-    for mod_name, attr, span in trace.LAYER_SPANS:
-        mod = importlib.import_module(mod_name)
-        patched.append((mod, attr, getattr(mod, attr)))
-        setattr(mod, attr, core._spanned(getattr(mod, attr), span))
-    lat = []
-    c0, t0 = program.counters(), program.tally()
-    try:
-        with profile(activities=acts) as prof:
-            for i in range(first, first + calls):
-                with record_function(trace.BATCH):
-                    dt, _ = core._call(E.estimate_batch_stats, state,
-                                       pool_q, pool_t, pool_t.shape[1],
-                                       traffic, i, pcfg)
-                lat.append(dt)
-    finally:
-        for mod, attr, plain in patched:
-            setattr(mod, attr, plain)
-    counts = program.diff(c0, program.counters())
-    counts.update(program.diff(t0, program.tally()))
-    return program.collect(prof), lat, counts
+def traced(drv, first: int, calls: int, dev):
+    """``calls`` calls under the profiler, as a traced run makes them
+    (``core.traced_calls``): ``(events, seconds a call, counter
+    differences)``."""
+    lat, _, prof, counts = core.traced_calls(drv, first, calls, dev)
+    return trace.collect(prof), lat, counts
 
 
 def split(spans: dict, key: str, total) -> dict:
@@ -129,7 +80,7 @@ def split(spans: dict, key: str, total) -> dict:
 
 def reduce(evs, lat, counts) -> dict:
     s = trace.summarize(evs)
-    spans = program.program_spans(evs)
+    spans = s.program_spans
     n = s.batches
     step = spans.get("prober.slab_step", {})
     idle = s.window_s - s.busy_s
@@ -144,7 +95,9 @@ def reduce(evs, lat, counts) -> dict:
         "window_s": s.window_s, "busy_s": s.busy_s,
         "launches": s.launches, "syncs": s.syncs,
         "counters": counts,
-        "slab_steps_per_call": counts.get("slab_steps", 0) / n,
+        "lane_steps_per_call": counts.get("kept_lane_steps", 0) / n,
+        "slab_launches_per_call": (counts.get("slab_loops", 0)
+                                   + counts.get("slab_steps", 0)) / n,
         "per_step": per_step,
         "launches_split": split(spans, "launches", s.launches),
         "syncs_split": split(spans, "syncs", s.syncs),
@@ -181,16 +134,15 @@ def main(argv=None, root: Path | None = None) -> dict:
     args = ap.parse_args(argv)
     root = root or ROOT
     dev = torch.device(args.device)
-    _, state, pool_q, pool_t, traffic, pcfg = set_up(
-        root, args.workload, args.seed, dev)
+    drv = core.set_up(core.load_cell(root, args.workload), args.seed,
+                      dev).driver
     rounds = []
     first = 0
     for r in range(args.rounds):
         rec = {}
         for side in (("on", "off") if r % 2 == 0 else ("off", "on")):
             with spans_off() if side == "off" else contextlib.nullcontext():
-                rec[side] = reduce(*traced(state, pool_q, pool_t, traffic,
-                                           pcfg, first, args.calls))
+                rec[side] = reduce(*traced(drv, first, args.calls, dev))
             first += args.calls
         rounds.append(rec)
     out = {"workload": args.workload, "seed": args.seed,
