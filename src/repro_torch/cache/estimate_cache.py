@@ -19,6 +19,9 @@ keys overwrite in place, the hand moves), which is one launch of
 ``ops.cache_insert`` on the card. Unlike the reference, insert updates the
 cache's tensors in place; its owner (the coalescer) keeps no other view.
 
+While a ``torch.profiler`` runs, a lookup is a ``cache.lookup`` span and
+an insert a ``cache.insert`` span (``utils/spans.span``).
+
 uint32 fields (``qhash``, ``snap_params``) are held in int64; the hash
 arithmetic masks with ``& 0xFFFFFFFF`` after every multiply and sum and
 before every shift, so it wraps as uint32 does.
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.cache.epochs import U32, EpochState, ball_sums_from_ham
 from repro_torch.kernels import ops
+from repro_torch.utils.spans import span
 
 _MULT = 2654435761
 
@@ -146,18 +150,19 @@ def lookup(cache: EstimateCache, ep: EpochState, ham: torch.Tensor | None,
     sums (``ham`` may then be None); callers pass it only while no ingest
     has happened since the cache was made. ``live`` masks padding rows.
     Hits set their entry's ``ref`` bit (a scatter-max)."""
-    m = _key_match(cache, qcodes, qhash, tau_keys, match_qhash)
-    slot = torch.argmax(m.to(torch.int32), dim=1)    # first match, else 0
-    key_hit = m.any(1)
-    fresh = cache.snap_params[slot] == ep.params_epoch
-    if check_ingest:
-        ball = ball_sums_from_ham(ham, bucket_sizes, cache.probed_k[slot])
-        fresh = fresh & (ball == cache.snap_ball[slot]).all(-1)
-    hit = key_hit & fresh & live
-    stale = key_hit & ~fresh & live
-    ref = cache.ref.to(torch.int32).scatter_reduce(
-        0, slot, hit.to(torch.int32), "amax").to(torch.bool)
-    return cache._replace(ref=ref), cache.est[slot], hit, stale
+    with span("cache.lookup"):
+        m = _key_match(cache, qcodes, qhash, tau_keys, match_qhash)
+        slot = torch.argmax(m.to(torch.int32), dim=1)  # first match, else 0
+        key_hit = m.any(1)
+        fresh = cache.snap_params[slot] == ep.params_epoch
+        if check_ingest:
+            ball = ball_sums_from_ham(ham, bucket_sizes, cache.probed_k[slot])
+            fresh = fresh & (ball == cache.snap_ball[slot]).all(-1)
+        hit = key_hit & fresh & live
+        stale = key_hit & ~fresh & live
+        ref = cache.ref.to(torch.int32).scatter_reduce(
+            0, slot, hit.to(torch.int32), "amax").to(torch.bool)
+        return cache._replace(ref=ref), cache.est[slot], hit, stale
 
 
 def insert(cache: EstimateCache, ep: EpochState, balls: torch.Tensor,
@@ -172,12 +177,13 @@ def insert(cache: EstimateCache, ep: EpochState, balls: torch.Tensor,
     (:func:`ball_sums_from_ham`); ``match_qhash`` must mirror the lookup's.
     Returns ``(cache, n_evicted)``, ``n_evicted`` a 0-d int32 tensor
     counting live entries displaced by new keys."""
-    n_evicted = ops.cache_insert(
-        cache, qcodes.to(torch.int32).contiguous(), qhash.contiguous(),
-        tau_keys.to(torch.int32).contiguous(),
-        balls.to(torch.int32).contiguous(),
-        ep.params_epoch, ests.to(torch.float32).contiguous(),
-        nvisited.to(torch.int32).contiguous(),
-        probed_k.to(torch.int32).contiguous(),
-        active.to(torch.bool).contiguous(), match_qhash)
+    with span("cache.insert"):
+        n_evicted = ops.cache_insert(
+            cache, qcodes.to(torch.int32).contiguous(), qhash.contiguous(),
+            tau_keys.to(torch.int32).contiguous(),
+            balls.to(torch.int32).contiguous(),
+            ep.params_epoch, ests.to(torch.float32).contiguous(),
+            nvisited.to(torch.int32).contiguous(),
+            probed_k.to(torch.int32).contiguous(),
+            active.to(torch.bool).contiguous(), match_qhash)
     return cache, n_evicted

@@ -19,7 +19,9 @@ sharded index (``distributed.estimate_sharded``), and :func:`_ingest_core`
 the update body that ``distributed.update_sharded`` shares. While a
 ``torch.profiler`` runs, each estimate is an ``estimator.estimate_batch``
 span, its LUT build a ``pq.build_query_lut`` span inside it, and the
-prober's phases spans inside those (``core/prober.py``).
+prober's phases spans inside those (``core/prober.py``); each update is an
+``estimator.update`` span, a capacity growth an ``estimator.grow`` span
+inside it.
 """
 from __future__ import annotations
 
@@ -184,11 +186,12 @@ def estimate(state: ProberState, q: torch.Tensor, tau, cfg: ProberConfig,
 def _grow(state: ProberState, new_capacity: int) -> ProberState:
     """Capacity growth: re-pad every per-point array and rebuild the
     untrimmed bucket layout at the new capacity."""
-    cap = state.x.shape[0]
-    x = torch.nn.functional.pad(state.x, (0, 0, 0, new_capacity - cap))
-    index = lsh.grow_capacity(state.index, new_capacity)
-    pq = None if state.pq is None else pqmod.grow(state.pq, new_capacity)
-    return ProberState(index=index, x=x, pq=pq, epochs=state.epochs)
+    with span("estimator.grow"):
+        cap = state.x.shape[0]
+        x = torch.nn.functional.pad(state.x, (0, 0, 0, new_capacity - cap))
+        index = lsh.grow_capacity(state.index, new_capacity)
+        pq = None if state.pq is None else pqmod.grow(state.pq, new_capacity)
+        return ProberState(index=index, x=x, pq=pq, epochs=state.epochs)
 
 
 def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
@@ -198,13 +201,15 @@ def update(state: ProberState, x_new: torch.Tensor, cfg: ProberConfig,
     doubles first. ``n_valid`` is an optional host-side hint of the live
     count, which saves reading it from the device. Attached epochs count
     the points and, when Alg. 7 moved W, a new params generation."""
-    nn = x_new.shape[0]
-    nv = int(state.index.n_valid.item()) if n_valid is None else int(n_valid)
-    cap = state.x.shape[0]
-    if nv + nn > cap:
-        state = _grow(state, updates.next_capacity(cap, nv + nn))
-    x_pad, n_new = updates._pad_batch(x_new.to(state.x.device))
-    return _ingest_core(state, x_pad, n_new, cfg, nv)
+    with span("estimator.update"):
+        nn = x_new.shape[0]
+        nv = int(state.index.n_valid.item()) if n_valid is None \
+            else int(n_valid)
+        cap = state.x.shape[0]
+        if nv + nn > cap:
+            state = _grow(state, updates.next_capacity(cap, nv + nn))
+        x_pad, n_new = updates._pad_batch(x_new.to(state.x.device))
+        return _ingest_core(state, x_pad, n_new, cfg, nv)
 
 
 def _ingest_core(state: ProberState, x_pad: torch.Tensor, n_new: int,

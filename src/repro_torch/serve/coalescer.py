@@ -13,6 +13,14 @@ codes) and the Hamming distances that both ball sums read (the lookup's
 freshness check and the insert's snapshots), and one ``cache_insert``
 launch writes the misses back.
 
+While a ``torch.profiler`` runs, each batch a flush drains is a
+``coalescer.flush`` span and each ingest chunk a ``coalescer.ingest``
+span (``utils/spans.span``), around the cache's ``cache.lookup`` /
+``cache.insert`` and the estimator's ``estimator.estimate_batch`` /
+``estimator.update`` (⊃ ``estimator.grow``) spans. ``ingest_stats``
+counts the rows and chunks ingested and the capacity growths, always, on
+the host.
+
 With a process ``group`` the coalescer serves off a SHARDED index (this
 rank's shard from ``distributed.build_sharded``): every rank makes the same
 ``submit`` / ``ingest`` / ``flush`` calls (SPMD), a flush runs
@@ -49,6 +57,7 @@ from repro_torch.cache.epochs import U32, ball_sums_from_ham
 from repro_torch.core import collectives, distributed as D, estimator as E
 from repro_torch.core import lsh, updates
 from repro_torch.core.config import ProberConfig
+from repro_torch.utils.spans import span
 
 RoundKeys = Callable[[int, int], torch.Tensor]
 
@@ -88,9 +97,10 @@ class CardinalityCoalescer:
     points and applies them in chunks of ``cfg.ingest_chunk``, eagerly and
     before every flush. ``cache_size`` and ``reuse_tol`` switch on the
     estimate cache; ``cache_stats`` counts hits, misses, stale entries,
-    evictions and lookups. Serves the state's device. ``group`` (e.g.
-    ``torch.distributed.group.WORLD``) serves a sharded state with the
-    stopping ``mode``; None serves a local one."""
+    evictions and lookups, ``ingest_stats`` the rows and chunks ingested
+    and the capacity growths they caused. Serves the state's device.
+    ``group`` (e.g. ``torch.distributed.group.WORLD``) serves a sharded
+    state with the stopping ``mode``; None serves a local one."""
 
     def __init__(self, state: E.ProberState, cfg: ProberConfig,
                  generator: torch.Generator | None = None,
@@ -118,6 +128,7 @@ class CardinalityCoalescer:
                                    state.x.device) if cache_size > 0 else None
         self.cache_stats = {"hits": 0, "misses": 0, "stale": 0, "evicts": 0,
                             "lookups": 0}
+        self.ingest_stats = {"rows": 0, "chunks": 0, "grows": 0}
         # False until the first ingest (or state swap): lookups skip the
         # ball sums while the corpus is provably unchanged
         self._check_ingest = False
@@ -194,16 +205,21 @@ class CardinalityCoalescer:
         buf = self._ingest_buf
         part, rest = buf[:k], buf[k:]
         self._ingest_buf = rest if len(rest) else None
-        if self._group is not None:
-            self._check_same(1, self._n_ingests, len(part), part)
-            self._n_ingests += 1
-            self._state, self._n_valid = D.update_sharded(
-                self._state, part, self.cfg, group=self._group,
-                n_valid=self._n_valid)
-            return
-        self._state = E.update(self._state, torch.from_numpy(part), self.cfg,
-                               n_valid=self._n_valid)
-        self._n_valid += len(part)
+        cap = self._state.x.shape[0]
+        with span("coalescer.ingest"):
+            if self._group is not None:
+                self._check_same(1, self._n_ingests, len(part), part)
+                self._n_ingests += 1
+                self._state, self._n_valid = D.update_sharded(
+                    self._state, part, self.cfg, group=self._group,
+                    n_valid=self._n_valid)
+            else:
+                self._state = E.update(self._state, torch.from_numpy(part),
+                                       self.cfg, n_valid=self._n_valid)
+                self._n_valid += len(part)
+        self.ingest_stats["rows"] += len(part)
+        self.ingest_stats["chunks"] += 1
+        self.ingest_stats["grows"] += int(self._state.x.shape[0] != cap)
 
     def flush(self) -> dict[int, CardResult]:
         """Apply pending ingests, then estimate everything pending in
@@ -220,39 +236,41 @@ class CardinalityCoalescer:
         while self.pending:
             batch, self.pending = self.pending[:self.max_batch], \
                 self.pending[self.max_batch:]
-            n = len(batch)
-            p = updates.next_pow2(n)
-            d = batch[0].q.shape[-1]
-            qs = np.zeros((p, d), np.float32)
-            taus = np.zeros((p,), np.float32)
-            for i, r in enumerate(batch):
-                qs[i], taus[i] = r.q, r.tau
-            flush_index = self._n_flushes
-            self._n_flushes += 1
-            if self._cache is not None:
-                ests, prov, pks, nvs = self._flush_cached(qs, taus, n,
-                                                          flush_index)
+            with span("coalescer.flush"):
+                n = len(batch)
+                p = updates.next_pow2(n)
+                d = batch[0].q.shape[-1]
+                qs = np.zeros((p, d), np.float32)
+                taus = np.zeros((p,), np.float32)
                 for i, r in enumerate(batch):
-                    r.probed_k, r.nvisited = pks[i], nvs[i]
-            else:
-                dev = self._state.x.device
-                tqs = torch.from_numpy(qs).to(dev)
-                ttaus = torch.from_numpy(taus).to(dev)
-                rks = self._round_keys(flush_index, p)
-                if self._group is None:
-                    ests = E.estimate_batch(self._state, tqs, ttaus, self.cfg,
-                                            rks=rks)
+                    qs[i], taus[i] = r.q, r.tau
+                flush_index = self._n_flushes
+                self._n_flushes += 1
+                if self._cache is not None:
+                    ests, prov, pks, nvs = self._flush_cached(qs, taus, n,
+                                                              flush_index)
+                    for i, r in enumerate(batch):
+                        r.probed_k, r.nvisited = pks[i], nvs[i]
                 else:
-                    self._check_same(0, flush_index, n, qs, taus)
-                    ests = D.estimate_sharded(self._state, tqs, ttaus,
-                                              self.cfg, rks, group=self._group,
-                                              mode=self.mode)
-                ests = ests.cpu().numpy()
-                prov = ["probe"] * n
-            for i, r in enumerate(batch):
-                r.est = float(ests[i])
-                r.provenance = prov[i]
-                out[r.rid] = CardResult(r.est, prov[i])
+                    dev = self._state.x.device
+                    tqs = torch.from_numpy(qs).to(dev)
+                    ttaus = torch.from_numpy(taus).to(dev)
+                    rks = self._round_keys(flush_index, p)
+                    if self._group is None:
+                        ests = E.estimate_batch(self._state, tqs, ttaus,
+                                                self.cfg, rks=rks)
+                    else:
+                        self._check_same(0, flush_index, n, qs, taus)
+                        ests = D.estimate_sharded(self._state, tqs, ttaus,
+                                                  self.cfg, rks,
+                                                  group=self._group,
+                                                  mode=self.mode)
+                    ests = ests.cpu().numpy()
+                    prov = ["probe"] * n
+                for i, r in enumerate(batch):
+                    r.est = float(ests[i])
+                    r.provenance = prov[i]
+                    out[r.rid] = CardResult(r.est, prov[i])
         return out
 
     def _check_same(self, step: int, index: int, rows: int,
