@@ -985,7 +985,8 @@ def every_row_live(torch, index):
     return index._replace(
         bucket_codes=torch.randint(-3, 4, bc.shape, generator=g,
                                    device=bc.device, dtype=torch.int32),
-        n_buckets=torch.full_like(index.n_buckets, bc.shape[1]))
+        n_buckets=torch.full_like(index.n_buckets, bc.shape[1]),
+        n_buckets_max=bc.shape[1])
 
 
 def q_errors(torch, est, truth):

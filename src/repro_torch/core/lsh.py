@@ -10,12 +10,16 @@ code; ``L`` independent tables form the index. Per table, a dense layout:
   * ``bucket_sizes``   (L, B)       number of points in bucket j
   * ``n_buckets``      (L,)         number of valid bucket rows
   * ``n_valid``        ()           number of live points (<= capacity C)
+  * ``n_buckets_max``  host int     ``max(n_buckets)``, or None (unknown)
 
 Rows ``j >= n_buckets[l]`` are padding. A capacity-padded index keeps the
 bucket axis at B = C, and its dead point rows carry ``CODE_SENTINEL`` codes,
 which sort into one trailing sentinel bucket at row ``n_buckets`` that no
 probe touches. A plain build trims the bucket axis to ``max(n_buckets)``
-rounded up to a multiple of 256. ``LSHIndex.raw`` keeps the pure projection
+rounded up to a multiple of 256. Every build, growth and ingest reads
+``max(n_buckets)`` to the host once, so that a probe reads only the first
+:attr:`LSHIndex.live_extent` rows of the bucket axis and takes no sync to
+know how many. ``LSHIndex.raw`` keeps the pure projection
 ``a·x`` so Alg. 7 (``normalize_w``) reproduces ``W`` bit for bit across
 ingests that extend no extreme.
 """
@@ -51,10 +55,22 @@ class LSHIndex(NamedTuple):
     bucket_sizes: torch.Tensor   # (L, B) int32
     n_buckets: torch.Tensor      # (L,) int32
     n_valid: torch.Tensor        # () int32
+    n_buckets_max: int | None = None   # max(n_buckets) on the host
 
     @property
     def capacity(self) -> int:
         return self.raw.shape[0]
+
+    @property
+    def live_extent(self) -> int:
+        """Bucket rows a probe reads: ``max(n_buckets)`` rounded up to a
+        power of two, at least 256 and at most B; B where
+        ``n_buckets_max`` is unknown. Every row past it is padding."""
+        nb = self.bucket_codes.shape[1]
+        if self.n_buckets_max is None:
+            return nb
+        pow2 = 1 << max(self.n_buckets_max - 1, 0).bit_length()
+        return min(nb, max(256, pow2))
 
     @property
     def n_tables(self) -> int:
@@ -235,14 +251,16 @@ def _build_table(codes_t: torch.Tensor, n_valid=None,
             n_buckets.to(torch.int32))
 
 
-def _build_tables(codes: torch.Tensor, n_valid=None) -> tuple[torch.Tensor, ...]:
-    """:func:`_build_table` for every table of (L, C, K) codes, stacked; the
-    packed-sort predicate is decided once over all tables."""
+def _build_tables(codes: torch.Tensor, n_valid=None) -> tuple:
+    """:func:`_build_table` for every table of (L, C, K) codes, stacked, and
+    last ``max(n_buckets)`` as a host int; the packed-sort predicate is
+    decided once over all tables."""
     valid = _live_mask(codes.shape[1], n_valid, codes.device)
     fits = bool(_pack_fits(codes, valid).item())
     parts = [_build_table(codes[t], n_valid, fits)
              for t in range(codes.shape[0])]
-    return tuple(torch.stack(p) for p in zip(*parts))
+    order, bcodes, starts, sizes, nb = (torch.stack(p) for p in zip(*parts))
+    return order, bcodes, starts, sizes, nb, int(nb.max())
 
 
 def _table_codes(raw: torch.Tensor, params: LSHParams, cfg: ProberConfig,
@@ -267,7 +285,7 @@ def build_index(x: torch.Tensor, cfg: ProberConfig,
     are drawn from ``generator`` and ``W`` is normalised on ``x``. With
     ``n_valid``, rows ``>= n_valid`` are capacity padding: masked out of
     the normalisation, coded ``CODE_SENTINEL``, and the bucket axis stays
-    untrimmed (B = C).
+    untrimmed (B = C); probes read its :attr:`LSHIndex.live_extent` rows.
     """
     dev = x.device
     if params is None:
@@ -280,21 +298,21 @@ def build_index(x: torch.Tensor, cfg: ProberConfig,
         raw = project_raw(params, x)
     n = x.shape[0]
     codes = _table_codes(raw, params, cfg, n_valid)
-    order, bcodes, starts, sizes, nb = _build_tables(codes, n_valid)
-    cap = _static_bucket_cap(nb, n) if n_valid is None else n
+    order, bcodes, starts, sizes, nb, nb_max = _build_tables(codes, n_valid)
+    cap = _static_bucket_cap(nb_max, n) if n_valid is None else n
     nv = n if n_valid is None else n_valid
     return LSHIndex(params=params, raw=raw, codes=codes, order=order,
                     bucket_codes=bcodes[:, :cap].contiguous(),
                     bucket_starts=starts[:, :cap].contiguous(),
                     bucket_sizes=sizes[:, :cap].contiguous(), n_buckets=nb,
-                    n_valid=torch.tensor(nv, dtype=torch.int32, device=dev))
+                    n_valid=torch.tensor(nv, dtype=torch.int32, device=dev),
+                    n_buckets_max=nb_max)
 
 
-def _static_bucket_cap(n_buckets: torch.Tensor, n: int) -> int:
+def _static_bucket_cap(n_buckets_max: int, n: int) -> int:
     """Bucket-axis length of a plain build: ``max(n_buckets)`` rounded up to
     a multiple of 256, at most ``n``."""
-    m = int(n_buckets.max().item())
-    return min(n, max(256, -(-m // 256) * 256))
+    return min(n, max(256, -(-n_buckets_max // 256) * 256))
 
 
 def grow_capacity(index: LSHIndex, new_capacity: int) -> LSHIndex:
@@ -309,10 +327,11 @@ def grow_capacity(index: LSHIndex, new_capacity: int) -> LSHIndex:
     codes = torch.nn.functional.pad(index.codes, (0, 0, 0, pad),
                                     value=CODE_SENTINEL)
     nv = int(index.n_valid.item())
-    order, bcodes, starts, sizes, nb = _build_tables(codes, nv)
+    order, bcodes, starts, sizes, nb, nb_max = _build_tables(codes, nv)
     return LSHIndex(params=index.params, raw=raw, codes=codes, order=order,
                     bucket_codes=bcodes, bucket_starts=starts,
-                    bucket_sizes=sizes, n_buckets=nb, n_valid=index.n_valid)
+                    bucket_sizes=sizes, n_buckets=nb, n_valid=index.n_valid,
+                    n_buckets_max=nb_max)
 
 
 def hamming_to_buckets(bucket_codes: torch.Tensor, n_buckets: torch.Tensor,

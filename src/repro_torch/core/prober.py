@@ -3,7 +3,9 @@ Alg. 1–3; port of ``repro/core/prober.py``).
 
 Lanes are rows: a batch of Q queries over L tables is Q·L lanes, lane
 ``i = q·L + t``, and every per-lane quantity is a row of a batch tensor.
-Rings N_k are ``hamming == k`` masks over one table's bucket codes; ring
+Rings N_k are ``hamming == k`` masks over one table's bucket codes, read
+over the index's live extent (``LSHIndex.live_extent``, a host int) and
+not its capacity: rows past ``n_buckets`` lie in no ring. Ring
 candidates are addressed through per-ring size cumsums of the sorted-CSR
 layout; progressive sampling walks a keyed PRP over each ring's power-of-two
 domain one ``chunk``-sized slab at a time, checking the Chernoff bounds of
@@ -54,8 +56,8 @@ Tracing: while a ``torch.profiler`` runs, each phase is a span
 ``prober.central_count``), ``prober.slab_loop`` (on the host loop holding
 a ``prober.slab_block`` span a block, each holding a ``prober.slab_step``
 span a step) and ``prober.tally``. :data:`TALLY` counts the slab's
-candidates by route and its lane-steps, only while a profiler runs
-(:func:`read_tally`).
+candidates by route and its lane-steps, and the ring rows built, only
+while a profiler runs (:func:`read_tally`).
 """
 from __future__ import annotations
 
@@ -76,31 +78,43 @@ from repro_torch.kernels.ref import prp_eval as _prp_eval  # noqa: F401
 # device: candidates the kernel qualified exactly and by ADC for lanes still
 # active; candidates of lanes already done earlier in their block, which the
 # merge discards; those discarded lane-steps; and the kept lane-steps. None
-# until a profiled call, then an int64 tensor on that call's device.
-# _TALLIED counts the calls summed in it
+# until a profiled call, then an int64 tensor on that call's device. The
+# last field, ring_rows, the bucket rows the calls built rings over (the
+# live extent times the lanes), is host ints, so it is summed on the host
+# (_RING_ROWS). _TALLIED counts the calls summed
 TALLY_FIELDS = ("exact", "adc", "discarded", "discarded_lane_steps",
-                "kept_lane_steps")
+                "kept_lane_steps", "ring_rows")
+_ON_DEVICE = len(TALLY_FIELDS) - 1
 TALLY: torch.Tensor | None = None
 _TALLIED = 0
+_RING_ROWS = 0
 
 
 def reset_tally() -> None:
-    global TALLY, _TALLIED
-    TALLY, _TALLIED = None, 0
+    global TALLY, _TALLIED, _RING_ROWS
+    TALLY, _TALLIED, _RING_ROWS = None, 0, 0
 
 
 def read_tally() -> dict[str, int]:
-    """:data:`TALLY` as ints by :data:`TALLY_FIELDS`, and under ``calls``
-    the number of calls it sums (a copy to the host: the caller waits for
-    the device)."""
-    vals = [0] * len(TALLY_FIELDS) if TALLY is None else TALLY.tolist()
-    return {**dict(zip(TALLY_FIELDS, vals)), "calls": _TALLIED}
+    """:data:`TALLY` and the ring rows as ints by :data:`TALLY_FIELDS`, and
+    under ``calls`` the number of calls they sum (a copy to the host: the
+    caller waits for the device)."""
+    vals = [0] * _ON_DEVICE if TALLY is None else TALLY.tolist()
+    return {**dict(zip(TALLY_FIELDS, vals + [_RING_ROWS])),
+            "calls": _TALLIED}
+
+
+def _tally_rings(cums: torch.Tensor) -> None:
+    """Add one call's ring rows, its (QL, K+1, E) cumsums' lanes times E,
+    to the tally: host ints, no launch."""
+    global _RING_ROWS
+    _RING_ROWS += cums.shape[0] * cums.shape[-1]
 
 
 def _tally_on(device) -> torch.Tensor:
     global TALLY
     if TALLY is None:
-        TALLY = torch.zeros(len(TALLY_FIELDS), dtype=torch.int64,
+        TALLY = torch.zeros(_ON_DEVICE, dtype=torch.int64,
                             device=device)
     elif TALLY.device != device:
         TALLY = TALLY.to(device)
@@ -142,26 +156,38 @@ def _tally_loop(counts: torch.Tensor) -> None:
 
 
 class TableView(NamedTuple):
-    """The index's per-table CSR arrays, stacked over the L tables."""
+    """The index's per-table CSR arrays, stacked over the L tables, with
+    the bucket axis cut to the index's live extent E."""
     order: torch.Tensor          # (L, C) int32
-    bucket_codes: torch.Tensor   # (L, B, K) int32
-    bucket_starts: torch.Tensor  # (L, B) int32
-    bucket_sizes: torch.Tensor   # (L, B) int32
+    bucket_codes: torch.Tensor   # (L, E, K) int32
+    bucket_starts: torch.Tensor  # (L, E) int32
+    bucket_sizes: torch.Tensor   # (L, E) int32
     n_buckets: torch.Tensor      # (L,) int32
 
 
 def table_views(index: lsh.LSHIndex) -> TableView:
-    return TableView(index.order, index.bucket_codes, index.bucket_starts,
-                     index.bucket_sizes, index.n_buckets)
+    """The index's tables over its first ``E = index.live_extent`` bucket
+    rows, contiguous (three copies where E < B, none where E = B). Every
+    row past E is padding, at Hamming distance K+1 from every query, so
+    every ring prefix and total, and every slab search, is the same over
+    the cut rows as over all B."""
+    e = index.live_extent
+
+    def cut(t):
+        return t if t.shape[1] == e else t[:, :e].contiguous()
+    return TableView(index.order, cut(index.bucket_codes),
+                     cut(index.bucket_starts), cut(index.bucket_sizes),
+                     index.n_buckets)
 
 
 def ring_cumsums(view: TableView, ham: torch.Tensor,
                  n_rings: int) -> torch.Tensor:
     """Masked size cumsums of rings k = 0..n_rings for every lane.
 
-    ``ham`` (Q, L, B) → (Q·L, n_rings+1, B) int32, row k of a lane being
-    ``cumsum(where(ham == k, sizes, 0))``. Built one ring at a time so the
-    only temporary is one (Q, L, B) slice. Memory: Q·L·(K+1)·B·4 bytes.
+    ``ham`` (Q, L, E) → (Q·L, n_rings+1, E) int32, row k of a lane being
+    ``cumsum(where(ham == k, sizes, 0))``, over the view's E bucket rows.
+    Built one ring at a time so the only temporary is one (Q, L, E) slice.
+    Memory: Q·L·(K+1)·E·4 bytes.
     """
     nq, nl, nb = ham.shape
     cums = torch.empty((nq, nl, n_rings + 1, nb), dtype=torch.int32,
@@ -187,7 +213,7 @@ def _count_central(view: TableView, tid: torch.Tensor, qcodes: torch.Tensor,
 
 class LaneCtx(NamedTuple):
     """Per-lane loop constants of the progressive sampler, (Q·L, ...)."""
-    cums: torch.Tensor           # (QL, K+1, B) ring size cumsums
+    cums: torch.Tensor           # (QL, K+1, E) ring size cumsums
     rks: torch.Tensor            # (QL, 6) PRP round keys (Alg. 2)
     prings: torch.Tensor         # (QL, K) PRP domain P_k = next_pow2(cap)
     caps: torch.Tensor           # (QL, K) sample caps min(|N_k|, budget)
@@ -452,7 +478,7 @@ def setup_lanes(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
     view = table_views(index)
     with span("prober.query_lanes"):
         qcodes, ham = lsh.query_lanes(index.params, qs, view.bucket_codes,
-                                      view.n_buckets)  # (Q, L, K), (Q, L, B)
+                                      view.n_buckets)  # (Q, L, K), (Q, L, E)
     lane = torch.arange(nq * nl, device=dev)
     lane_q, lane_t = lane // nl, lane % nl
     qual = _make_qual(x, qs, taus * taus, lane_q, cfg, pq_codes, pq_luts,
@@ -503,6 +529,7 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
         if tracing:
             with span("prober.tally"):
                 _tally_loop(counts)
+                _tally_rings(b.ctx.cums)
     else:
         kept = [] if tracing or steps is not None else None
         state = _run_lanes(state, b.ctx, b.view, b.lane_t, b.qual, cfg,
@@ -512,6 +539,7 @@ def estimate_batch(index: lsh.LSHIndex, x: torch.Tensor, qs: torch.Tensor,
         if tracing:
             with span("prober.tally"):
                 _tally(kept, b.qual, n_rings)
+                _tally_rings(b.ctx.cums)
     ests = state["est"].reshape(nq, nl).mean(1)
     if not with_stats:
         return ests

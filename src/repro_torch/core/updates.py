@@ -62,12 +62,13 @@ def _lsh_ingest(index: lsh.LSHIndex, x_new: torch.Tensor, n_new: int,
     params = params._replace(w=lsh.normalize_w(raw_all, cfg.n_regions, nv2,
                                                group=group))
     codes = lsh._table_codes(raw_all, params, cfg, nv2)
-    order, bcodes, starts, sizes, nb = lsh._build_tables(codes, nv2)
+    order, bcodes, starts, sizes, nb, nb_max = lsh._build_tables(codes, nv2)
     return lsh.LSHIndex(params=params, raw=raw_all, codes=codes, order=order,
                         bucket_codes=bcodes, bucket_starts=starts,
                         bucket_sizes=sizes, n_buckets=nb,
                         n_valid=torch.tensor(nv2, dtype=torch.int32,
-                                             device=raw_all.device))
+                                             device=raw_all.device),
+                        n_buckets_max=nb_max)
 
 
 def _epoch_ingest(ep: cache_epochs.EpochState, index: lsh.LSHIndex,
